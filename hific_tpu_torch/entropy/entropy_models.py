@@ -1,0 +1,124 @@
+"""Host-side entropy models: select CDF rows and run the rANS coder.
+
+Counterpart of the JAX package's `entropy/entropy_models.py`. Symbols and
+indices here are numpy arrays in NCHW, so the lane layout (channels as
+lanes, row-major spatial walk) is that of the JAX package's bitstream.
+Tables are built on the host whatever device the codec runs on, with the
+float32 arithmetic of `host_math`, which makes them byte-identical to the
+JAX package's.
+"""
+
+import copy
+from typing import Optional, Tuple
+
+import numpy as np
+
+from hific_tpu_torch.entropy import coding, host_math
+from hific_tpu_torch.entropy.tables import (
+    CdfTables,
+    SCALES_MIN,
+    build_factorized_tables,
+    build_scale_tables,
+    estimate_tails,
+    prior_scale_table,
+)
+from hific_tpu_torch.models.density import (
+    PRECISION_P,
+    TAIL_MASS,
+    HyperlatentDensity,
+)
+from hific_tpu_torch.ops import maths
+
+
+class FactorizedEntropyModel:
+    """Entropy model of the learned factorized hyperlatent density: one CDF
+    row per channel, independent of the data."""
+
+    def __init__(self, density: HyperlatentDensity,
+                 tail_mass: float = TAIL_MASS, precision: int = PRECISION_P):
+        # A CPU copy of the (tiny) density: tables are host data.
+        self.density = copy.deepcopy(density).to("cpu").requires_grad_(False)
+        self.n_channels = self.density.n_channels
+        self.tail_mass = float(tail_mass)
+        self.precision = int(precision)
+        self.tables: Optional[CdfTables] = None
+
+    def build_tables(self) -> CdfTables:
+        shape = (self.n_channels, 1, 1)
+        target = float(np.log(2.0 / self.tail_mass - 1.0))
+        lower, upper = (t.reshape(-1).numpy() for t in estimate_tails(
+            self.density.cdf_logits, [-target, target], shape))
+
+        params = {name: p.numpy() for name, p in
+                  self.density.named_parameters()}
+
+        def likelihood_fn(samples: np.ndarray) -> np.ndarray:
+            return host_math.factorized_likelihood(
+                params, samples, self.density.min_likelihood)
+
+        self.tables = build_factorized_tables(likelihood_fn, lower, upper,
+                                              self.precision)
+        return self.tables
+
+    def _indices(self, batch: int, broadcast_shape) -> np.ndarray:
+        idx = np.arange(self.n_channels, dtype=np.int32).reshape(-1, 1, 1)
+        idx = np.broadcast_to(idx, (self.n_channels, *broadcast_shape))
+        return np.broadcast_to(idx[None], (batch, *idx.shape))
+
+    def compress_symbols(self, symbols: np.ndarray) -> Tuple[np.ndarray, tuple]:
+        """Integer symbols (N, C, H, W) -> (uint32 stream, coding_shape)."""
+        if self.tables is None:
+            raise RuntimeError("call build_tables() first")
+        symbols = np.asarray(symbols, np.int32)
+        indices = self._indices(symbols.shape[0], symbols.shape[2:])
+        return coding.encode_indexed(symbols, indices, self.tables.cdf,
+                                     self.tables.cdf_length,
+                                     self.tables.cdf_offset, self.precision)
+
+    def decompress_symbols(self, encoded: np.ndarray, batch: int,
+                           broadcast_shape) -> np.ndarray:
+        if self.tables is None:
+            raise RuntimeError("call build_tables() first")
+        indices = self._indices(batch, broadcast_shape)
+        return coding.decode_indexed(encoded, indices, self.tables.cdf,
+                                     self.tables.cdf_length,
+                                     self.tables.cdf_offset, self.precision,
+                                     inverse_table=self.tables.inverse)
+
+
+class ConditionalEntropyModel:
+    """Entropy model of the mean-scale conditional latent prior: a static
+    log-spaced scale table, one CDF row per table scale; the means are the
+    quantization offsets."""
+
+    def __init__(self, likelihood_type: str = "gaussian",
+                 min_scale: float = SCALES_MIN, tail_mass: float = TAIL_MASS,
+                 precision: int = PRECISION_P):
+        if likelihood_type == "gaussian":
+            std_cdf = host_math.standardized_cdf_gaussian
+            std_q = maths.standardized_quantile_gaussian
+        elif likelihood_type == "logistic":
+            std_cdf = host_math.logistic
+            std_q = maths.standardized_quantile_logistic
+        else:
+            raise ValueError(likelihood_type)
+        self.likelihood_type = likelihood_type
+        self.precision = int(precision)
+        self.scale_table = np.maximum(prior_scale_table(), min_scale)
+        self.tables = build_scale_tables(std_cdf, std_q, self.scale_table,
+                                         tail_mass, precision)
+
+    def compress_symbols(self, symbols: np.ndarray, indices: np.ndarray
+                         ) -> Tuple[np.ndarray, tuple]:
+        """Integer symbols + scale-table indices, both (N, C, H, W)."""
+        return coding.encode_indexed(np.asarray(symbols, np.int32),
+                                     np.asarray(indices, np.int32),
+                                     self.tables.cdf, self.tables.cdf_length,
+                                     self.tables.cdf_offset, self.precision)
+
+    def decompress_symbols(self, encoded: np.ndarray, indices: np.ndarray
+                           ) -> np.ndarray:
+        return coding.decode_indexed(encoded, np.asarray(indices, np.int32),
+                                     self.tables.cdf, self.tables.cdf_length,
+                                     self.tables.cdf_offset, self.precision,
+                                     inverse_table=self.tables.inverse)

@@ -1,0 +1,19 @@
+"""ChannelNorm, plain PyTorch: the CPU path and the kernel's yardstick.
+
+Normalizes each pixel over the channel axis of an NCHW tensor, then applies
+the per-channel affine. Like the JAX package's `ops/channel_norm.py` (and
+torch.var), it divides by C - 1, and eps is 1e-3.
+"""
+
+import torch
+
+
+def channel_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                 eps: float = 1e-3) -> torch.Tensor:
+    """x: (N, C, H, W); gamma, beta: (C,)."""
+    c = x.shape[1]
+    mu = x.mean(dim=1, keepdim=True)
+    centered = x - mu
+    var = (centered * centered).sum(dim=1, keepdim=True) / (c - 1)
+    x_normed = centered * torch.rsqrt(var + eps)
+    return x_normed * gamma.view(1, c, 1, 1) + beta.view(1, c, 1, 1)

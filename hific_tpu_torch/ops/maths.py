@@ -1,0 +1,75 @@
+"""Evaluation-time maths of the bottleneck: bounds, CDFs, quantiles and the
+PMF -> integer-CDF quantizer of the entropy coder.
+
+Counterpart of the JAX package's `ops/maths.py`. Only the forward values
+are needed for coding, so `lower_bound_toward` is a clamp here; its
+gradient rule belongs to the training slice.
+"""
+
+import math
+
+import numpy as np
+import scipy.stats
+import torch
+
+_INV_SQRT2 = 1.0 / math.sqrt(2.0)
+
+
+def lower_bound_toward(x: torch.Tensor, bound: float) -> torch.Tensor:
+    """max(x, bound) (forward of the gradient-gated lower bound)."""
+    return torch.clamp_min(x, bound)
+
+
+def standardized_cdf_gaussian(value: torch.Tensor) -> torch.Tensor:
+    """Standard normal CDF in erfc form, stable in the left tail."""
+    return 0.5 * torch.special.erfc(value * (-_INV_SQRT2))
+
+
+def standardized_cdf_logistic(value: torch.Tensor) -> torch.Tensor:
+    return torch.sigmoid(value)
+
+
+def standardized_quantile_gaussian(quantile):
+    return scipy.stats.norm.ppf(quantile)
+
+
+def standardized_quantile_logistic(quantile):
+    return scipy.stats.logistic.ppf(quantile)
+
+
+def pmf_to_quantized_cdf(pmf, precision: int) -> np.ndarray:
+    """Quantize a PMF to an integer CDF summing exactly to 2**precision.
+
+    Rounds the scaled cumulative sum; where that zeroes a symbol of nonzero
+    probability, one unit of frequency is taken from the currently smallest
+    symbol with frequency > 1. Returns int32 of length len(pmf) + 1, with
+    cdf[0] == 0 and cdf[-1] == 1 << precision, non-decreasing.
+    """
+    pmf = np.asarray(pmf, dtype=np.float64)
+    if precision < 8:
+        raise ValueError("precision should be in [8, 32]")
+    if pmf.ndim != 1 or pmf.shape[0] < 2:
+        raise ValueError("pmf must be 1-D with at least 2 entries")
+    if np.any(np.isnan(pmf)) or np.any(pmf < 0.0):
+        raise ValueError("pmf must be non-negative and free of NaNs")
+
+    target_total = 1 << precision
+    cdf = np.zeros(pmf.shape[0] + 1, dtype=np.float64)
+    cdf[1:] = np.cumsum(pmf)
+    cdf = np.round(cdf * target_total / cdf[-1]).astype(np.int64)
+
+    for i in range(len(cdf) - 1):
+        if cdf[i] == cdf[i + 1]:
+            freqs = cdf[1:] - cdf[:-1]
+            candidates = np.where(freqs > 1)[0]
+            if candidates.size == 0:
+                raise ValueError("no frequency available to steal")
+            best_steal = candidates[np.argmin(freqs[candidates])]
+            if best_steal < i:
+                cdf[best_steal + 1: i + 1] -= 1
+            else:
+                cdf[i + 1: best_steal + 1] += 1
+
+    if cdf[0] != 0 or cdf[-1] != target_total or np.any(np.diff(cdf) < 0):
+        raise ValueError("CDF normalization error")
+    return cdf.astype(np.int32)
