@@ -2,30 +2,49 @@
 
     python3 chip_smoke.py [--weights artifacts/flagship_rd30k_f16.npz]
 
-Drives the port's main path, the flagship codec round trip (image -> .hfc ->
-image), through `hific_tpu_torch.codec.Codec`, and holds every kernel of
-that path against its plain PyTorch version:
+Drives the port's two paths at the flagship's full width: the codec round
+trip (image -> .hfc -> image) through `hific_tpu_torch.codec.Codec`, and
+compression training steps through the trainer `hific_tpu_torch.cli.train`;
+and holds every kernel of those paths against its plain PyTorch version:
 
 1. the card's name, power limit and count;
-2. builds the kernels from the sources in this checkout (plain nvcc);
-3. runs the ChannelNorm kernel at each of the path's 29 (M, C, act) shapes
-   against its plain version (fp32 within 1e-5; bf16 within one ulp plus
-   1e-5 at two shapes), with its time, the plain version's time and the
-   memory bound;
-4. loads the flagship weights (seeded random weights of the same
+2. builds the kernels from the sources in this checkout, all compilers
+   started together (nvcc for `csrc/channel_norm.cu`, which holds the
+   ChannelNorm forward and backward kernels; g++ for the host rANS coder);
+3. runs the ChannelNorm forward kernel at each of the round trip's 29
+   (M, C, act) shapes against its plain version (fp32 within 1e-5; bf16
+   within one ulp plus 1e-5 at two shapes), with its time, the plain
+   version's time and the memory bound;
+4. runs the ChannelNorm backward kernel at each of the 29 norm shapes of a
+   batch-8, 256x256 flagship training step against its plain version, dx,
+   dgamma and dbeta, in fp32 (within 1e-5 of the row's or column's scale)
+   and bf16 (dx within one bf16 ulp more), with the same timings;
+5. loads the flagship weights (seeded random weights of the same
    configuration where the artifact is absent) and builds the codec and
    its tables;
-5. compress_file -> .hfc -> decompress_file of a seeded smooth 768x512
-   image: decoded symbols equal the encoded ones, the kernel ran exactly
-   once per ChannelNorm (29 launches), and the card's encoder/generator
-   agree with the plain CPU path on a 64x64 crop (within 1e-3);
-6. prints the kernels' JSON line and, last, the device line.
+6. compress_file -> .hfc -> decompress_file of a seeded smooth 768x512
+   image: decoded symbols equal the encoded ones, the forward kernel ran
+   exactly once per ChannelNorm (29 launches), and the card's
+   encoder/generator agree with the plain CPU path on a 64x64 crop (within
+   1e-3);
+7. one tiny-config training step on the card against the same step on the
+   CPU's plain path (same weights, same noise): loss within 1e-4, every
+   gradient within 1e-3 of its leaf's largest;
+8. five flagship-width compression steps (batch 8 of seeded 256x256 uint8
+   crops, seeded random weights and LPIPS backbone) through the trainer:
+   finite losses, a nonzero gradient for every codec parameter, 29
+   forward and 29 backward launches per step, the count of incoming
+   gradients that were not channels-last, the warm step time and a
+   profile of one more step;
+9. prints the kernels' JSON line and, last, the device line.
 
 Any failure exits non-zero; no phase catches an error. Needs one CUDA card.
 """
 
 import argparse
+import concurrent.futures
 import json
+import math
 import os
 import subprocess
 import sys
@@ -41,6 +60,7 @@ IMAGE_H, IMAGE_W = 512, 768
 FP32_TOL = 1e-5
 TIMING_REPS = 20
 SEED = 0  # weights (without the artifact), image and kernel inputs
+TRAIN_BATCH, TRAIN_CROP, TRAIN_STEPS = 8, 256, 5
 
 
 def log(msg: str) -> None:
@@ -162,6 +182,166 @@ def check_channel_norm(shapes, gen):
     }
 
 
+
+def train_step_norm_shapes(config, batch: int, crop: int):
+    """(M, C, act) of every ChannelNorm of one training step on batch x
+    crop x crop crops (no padding: crop is a multiple of 64)."""
+    from hific_tpu_torch.models.encoder import ENCODER_FILTERS
+    from hific_tpu_torch.models.generator import GENERATOR_FILTERS
+
+    m0 = batch * crop * crop
+    shapes = [(m0 >> (2 * i), ENCODER_FILTERS[i], "relu") for i in range(5)]
+    m = m0 >> 8
+    shapes += [(m, config.latent_channels, "none"),
+               (m, GENERATOR_FILTERS[0], "none")]
+    for _ in range(config.n_residual_blocks):
+        shapes += [(m, GENERATOR_FILTERS[0], "relu"),
+                   (m, GENERATOR_FILTERS[0], "none")]
+    for i in range(1, 5):
+        shapes.append((m << (2 * i), GENERATOR_FILTERS[i], "relu"))
+    return shapes
+
+
+def _norm_inputs(m, c, gen, dtype):
+    def rows(scale):
+        t = torch.randn((1, m, 1, c), generator=gen) * scale
+        return t.permute(0, 3, 1, 2).cuda().to(dtype).contiguous(
+            memory_format=torch.channels_last)
+    x, g = rows(2.0), rows(1.0)
+    gamma = (1.0 + 0.1 * torch.randn(c, generator=gen)).cuda()
+    beta = (0.1 * torch.randn(c, generator=gen)).cuda()
+    return x, g, gamma, beta
+
+
+def _backward_error(x, g, gamma, beta, act, got):
+    """(max dx err / row scale, max dgamma or dbeta err / column scale, max
+    abs dx err, bf16 values beyond one ulp, rows at the ReLU's kink) against
+    the plain version. Row scale r * max_C |g * gamma| (dx is a difference
+    of such terms); column scale the sum of |terms| of the column. Where
+    the ReLU's input is within 1e-5 of its terms' size of 0 either side of
+    the kink is right: such rows are left out of the dx error and their
+    |terms| out of the sums' error."""
+    from hific_tpu_torch.ops import fused_norm
+
+    dx, dgamma, dbeta = got
+    c = x.shape[1]
+    want_dx, want_dgamma, want_dbeta = \
+        fused_norm.channel_norm_backward_reference(x, gamma, beta, g, act=act)
+    xf, gf = x.float(), g.float()
+    gam, bet = gamma.view(1, c, 1, 1), beta.view(1, c, 1, 1)
+    centered = xf - xf.mean(1, keepdim=True)
+    r = torch.rsqrt((centered * centered).sum(1, keepdim=True) / (c - 1)
+                    + 1e-3)
+    x_hat = centered * r
+    near = torch.zeros_like(xf, dtype=torch.bool)
+    if act == "relu":
+        near = (x_hat * gam + bet).abs() <= FP32_TOL * (
+            (x_hat * gam).abs() + bet.abs())
+    near_row = near.any(dim=1, keepdim=True)
+    row = r * (gf * gam).abs().amax(1, keepdim=True)
+    diff = (dx.float() - want_dx).abs()
+    if x.dtype == torch.bfloat16:
+        ulp = bf16_ulp(want_dx)
+        beyond = int(((diff > ulp) & ~near_row).sum())
+        diff = (diff - ulp).clamp_min(0)
+    else:
+        beyond = 0
+    diff = diff.masked_fill(near_row, 0.0)
+    dx_rel = float((diff / row.clamp_min(1e-30)).max())
+    kink_g = (gf.abs() * x_hat.abs() * near).sum(dim=(0, 2, 3))
+    kink_b = (gf.abs() * near).sum(dim=(0, 2, 3))
+    col_g = (gf.abs() * x_hat.abs()).sum(dim=(0, 2, 3))
+    col_b = gf.abs().sum(dim=(0, 2, 3))
+    sums_rel = max(
+        float((((dgamma - want_dgamma).abs() - kink_g).clamp_min(0)
+               / col_g.clamp_min(1e-30)).max()),
+        float((((dbeta - want_dbeta).abs() - kink_b).clamp_min(0)
+               / col_b.clamp_min(1e-30)).max()))
+    abs_err = float((dx.float() - want_dx).abs().masked_fill(near_row, 0.0)
+                    .max())
+    return (dx_rel, sums_rel, abs_err, beyond, int(near_row.sum()),
+            float(near.float().mean()))
+
+
+def check_channel_norm_backward(shapes, gen):
+    """Backward kernel vs plain version at every shape (fp32 and bf16);
+    timings at each distinct fp32 shape, of the forward kernel too (after a
+    check against its plain version), since a training step launches both.
+    Returns the summary."""
+    from hific_tpu_torch.ops import fused_norm
+
+    timed_shapes, max_err, worst = {}, 0.0, (0.0, 0.0)
+    for m, c, act in shapes:
+        if (m, c, act) in timed_shapes:
+            continue
+        for dtype in (torch.float32, torch.bfloat16):
+            x, g, gamma, beta = _norm_inputs(m, c, gen, dtype)
+            got = fused_norm.channel_norm_backward(x, gamma, beta, g, act=act)
+            again = fused_norm.channel_norm_backward(x, gamma, beta, g,
+                                                     act=act)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"backward M={m} C={c}: two runs differ")
+            dx_rel, sums_rel, abs_err, beyond, kink_rows, kink_share = \
+                _backward_error(x, g, gamma, beta, act, got)
+            if not (dx_rel <= FP32_TOL and sums_rel <= FP32_TOL
+                    and kink_share <= 1e-4):
+                raise AssertionError(
+                    f"channel_norm backward M={m} C={c} {act} {dtype}: dx "
+                    f"off by {dx_rel:.2e} of its row scale, dgamma/dbeta by "
+                    f"{sums_rel:.2e} of their column scale (limit "
+                    f"{FP32_TOL}); {kink_share:.1e} of the inputs at the "
+                    f"ReLU's kink (limit 1e-4)")
+            if dtype == torch.float32:
+                max_err = max(max_err, abs_err)
+                worst = (max(worst[0], dx_rel), max(worst[1], sums_rel))
+                k_ms = cuda_time_ms(lambda: fused_norm.channel_norm_backward(
+                    x, gamma, beta, g, act=act))
+                p_ms = cuda_time_ms(
+                    lambda: fused_norm.channel_norm_backward_reference(
+                        x, gamma, beta, g, act=act))
+                bound_ms = ((3 * m * c * 4 + 4 * c * 4) / HBM_BYTES_PER_S
+                            * 1e3)
+                y = fused_norm.channel_norm_fused(x, gamma, beta, act=act)
+                y_err = float((y - fused_norm.channel_norm_fused_reference(
+                    x, gamma, beta, act=act)).abs().max())
+                if not y_err <= FP32_TOL:
+                    raise AssertionError(f"channel_norm M={m} C={c} {act}: "
+                                         f"max abs err {y_err}")
+                f_ms = cuda_time_ms(lambda: fused_norm.channel_norm_fused(
+                    x, gamma, beta, act=act))
+                fp_ms = cuda_time_ms(
+                    lambda: fused_norm.channel_norm_fused_reference(
+                        x, gamma, beta, act=act))
+                f_bound = (2 * m * c * 4 + 2 * c * 4) / HBM_BYTES_PER_S * 1e3
+                timed_shapes[(m, c, act)] = (k_ms, p_ms, bound_ms, f_ms,
+                                             fp_ms, f_bound)
+                log(f"backward M={m:6d} C={c:3d} {act:4s}: dx err "
+                    f"{dx_rel:.1e} of row scale, sums {sums_rel:.1e}, "
+                    f"{kink_rows} rows at the kink; kernel "
+                    f"{k_ms:.4f} ms plain {p_ms:.4f} ms bound "
+                    f"{bound_ms:.4f} ms ({bound_ms / k_ms:.0%} of HBM "
+                    f"roofline); forward kernel {f_ms:.4f} ms plain "
+                    f"{fp_ms:.4f} ms bound {f_bound:.4f} ms")
+            else:
+                log(f"backward bf16 M={m:6d} C={c:3d} {act:4s}: dx beyond "
+                    f"one ulp by {dx_rel:.1e} of row scale at most ({beyond} "
+                    f"values beyond one ulp), sums {sums_rel:.1e}, "
+                    f"{kink_rows} rows at the kink")
+    rows = [timed_shapes[s] for s in shapes]
+    return {
+        "ms": sum(r[0] for r in rows),
+        "plain_ms": sum(r[1] for r in rows),
+        "bound_ms": sum(r[2] for r in rows),
+        "fwd_ms": sum(r[3] for r in rows),
+        "fwd_plain_ms": sum(r[4] for r in rows),
+        "fwd_bound_ms": sum(r[5] for r in rows),
+        "max_abs_err": max_err,
+        "worst": worst,
+        "per_shape": timed_shapes,
+    }
+
+
 def timed(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -206,6 +386,172 @@ def warm_round_trip(codec, x, card: str) -> None:
     for e in rows[:10]:
         print(f"    {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} "
               f"{e.key[:90]}")
+
+
+
+def tiny_step_card_vs_cpu() -> str:
+    """One tiny-config training step on the card (the kernels) and on the
+    CPU (the plain versions), same weights and same noise: loss within
+    1e-4, every gradient within 1e-3 of its leaf's largest |gradient|."""
+    import hific_tpu_torch.models.hyperprior as hyperprior_module
+    from hific_tpu_torch.config import mse_lpips_config
+    from hific_tpu_torch.models.hific import HiFiC, init_random_
+    from hific_tpu_torch.training.train_step import (
+        TrainState, make_optimizers, make_train_step_g)
+
+    cfg = mse_lpips_config(latent_channels=8, n_residual_blocks=1,
+                           hyperlatent_filters=16, crop_size=64)
+    rng = np.random.RandomState(SEED)
+    x = rng.randint(0, 256, (2, 64, 64, 3)).astype(np.uint8)
+    noise = {}
+
+    def shared_noise(t, generator):
+        key = tuple(t.shape)
+        if key not in noise:
+            noise[key] = torch.from_numpy(
+                rng.uniform(-0.5, 0.5, key).astype(np.float32))
+        return t + noise[key].to(t.device)
+
+    init = init_random_(HiFiC(cfg), torch.Generator().manual_seed(SEED))
+    grads, losses = [], []
+    saved = hyperprior_module.quantize_noise
+    hyperprior_module.quantize_noise = shared_noise
+    try:
+        for device in ("cpu", "cuda"):
+            model = HiFiC(cfg)
+            model.load_state_dict(init.state_dict())
+            model = model.to(device, memory_format=torch.channels_last)
+            state = TrainState(0, model, make_optimizers(cfg, model), None)
+            diag = make_train_step_g(cfg)(state, x)
+            losses.append(float(diag["weighted_compression_loss"]))
+            grads.append({n: p.grad.cpu() for n, p in
+                          model.named_parameters()})
+    finally:
+        hyperprior_module.quantize_noise = saved
+    loss_rel = abs(losses[1] - losses[0]) / abs(losses[0])
+    grad_rel = max(float((grads[1][n] - g).abs().max()
+                         / g.abs().max().clamp_min(1e-30))
+                   for n, g in grads[0].items())
+    if not (loss_rel <= 1e-4 and grad_rel <= 1e-3):
+        raise AssertionError(f"tiny training step, card vs CPU: loss off by "
+                             f"{loss_rel:.2e}, gradients by {grad_rel:.2e} "
+                             f"of their leaf's largest")
+    return (f"tiny training step, card vs CPU plain path: loss rel diff "
+            f"{loss_rel:.2e} (limit 1e-4), worst gradient leaf "
+            f"{grad_rel:.2e} of its largest (limit 1e-3)")
+
+
+def train_crops(seed: int):
+    """Endless (uint8 batch, bpp) pairs of seeded smooth 256x256 crops."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.meshgrid(np.linspace(0, 1, TRAIN_CROP),
+                         np.linspace(0, 1, TRAIN_CROP), indexing="ij")
+    while True:
+        batch = np.empty((TRAIN_BATCH, TRAIN_CROP, TRAIN_CROP, 3), np.uint8)
+        for i in range(TRAIN_BATCH):
+            img = np.zeros((TRAIN_CROP, TRAIN_CROP, 3))
+            for ch in range(3):
+                fy, fx, phase = rng.uniform(0.5, 6.0), rng.uniform(0.5, 6.0), \
+                    rng.uniform(0, 2 * np.pi)
+                img[..., ch] = 0.5 + 0.3 * np.sin(
+                    2 * np.pi * (fy * yy + fx * xx) + phase)
+            img += rng.normal(0, 0.03, img.shape)
+            batch[i] = (np.clip(img, 0, 1) * 255 + 0.5).astype(np.uint8)
+        yield batch, np.zeros(TRAIN_BATCH, np.float32)
+
+
+def train_flagship(card: str, n_norms: int):
+    """TRAIN_STEPS flagship-width compression steps through the trainer;
+    returns (launches of the forward and backward kernels, summary)."""
+    from hific_tpu_torch.cli import train as train_cli
+    from hific_tpu_torch.ops import fused_norm
+    from hific_tpu_torch.training.train_step import make_train_step_g
+
+    steps = []
+
+    def on_step(state, diag):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        loss = float(diag["weighted_compression_loss"])
+        if not math.isfinite(loss):
+            raise AssertionError(f"step {state.step}: loss {loss}")
+        dead = [n for n, p in state.model.named_parameters()
+                if p.grad is None or not bool(p.grad.ne(0).any())]
+        if dead:
+            raise AssertionError(f"step {state.step}: no gradient for "
+                                 f"{len(dead)} parameters, e.g. {dead[:4]}")
+        counts = (fused_norm.KERNEL.launches,
+                  fused_norm.BACKWARD_KERNEL.launches,
+                  fused_norm.BACKWARD_KERNEL.g_copies)
+        # A step's time runs from the end of the previous step's checks.
+        steps.append((now, time.perf_counter(), loss, float(diag["q_rate"]),
+                      counts))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        args = train_cli.parse_args([
+            "--steps", str(TRAIN_STEPS), "-bs", str(TRAIN_BATCH),
+            "-crop", str(TRAIN_CROP), "--uncalibrated_lpips_ok",
+            "--device", "cuda", "--seed", str(SEED),
+            "--log_interval", "1000", "--save_interval", "1000",
+            "--experiments_dir", tmp])
+        crops = train_crops(SEED)  # made ahead: not in the step times
+        batches = [next(crops) for _ in range(TRAIN_STEPS + 1)]
+        fused_norm.KERNEL.launches = 0
+        fused_norm.BACKWARD_KERNEL.launches = 0
+        fused_norm.BACKWARD_KERNEL.g_copies = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = train_cli.run(args, batches=iter(batches[:TRAIN_STEPS]),
+                              on_step=on_step)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fwd = fused_norm.KERNEL.launches
+        bwd = fused_norm.BACKWARD_KERNEL.launches
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+        # One more step under the profiler (not counted above).
+        step_fn = make_train_step_g(state.model.config, train_cli.make_lpips_fn(
+            args, next(state.model.parameters()).device))
+        activities = [torch.profiler.ProfilerActivity.CPU,
+                      torch.profiler.ProfilerActivity.CUDA]
+        batch = batches[-1][0]
+        with torch.profiler.profile(activities=activities) as prof:
+            _, step_ms = timed(lambda: step_fn(state, batch))
+
+    per_step = []
+    prev = (0, 0, 0)
+    for i, (_, _, loss, q, counts) in enumerate(steps):
+        delta = tuple(a - b for a, b in zip(counts, prev))
+        prev = counts
+        per_step.append(delta)
+        if delta[:2] != (n_norms, n_norms):
+            raise AssertionError(f"step {i + 1}: {delta[0]} forward and "
+                                 f"{delta[1]} backward launches, expected "
+                                 f"{n_norms} each")
+        log(f"train step {i + 1}: loss {loss:.4f}, q_bpp {q:.4f}, launches "
+            f"fwd {delta[0]} bwd {delta[1]}, non-channels-last g copied "
+            f"{delta[2]}")
+    times = [b[0] - a[1] for a, b in zip(steps, steps[1:])]
+    warm_ms = 1e3 * sum(times) / len(times)
+    log(f"{TRAIN_STEPS} flagship steps (bs {TRAIN_BATCH}, {TRAIN_CROP}x"
+        f"{TRAIN_CROP}, fp32, TF32 off) in {wall:.1f} s through the trainer "
+        f"(model build, steps, final checkpoint); warm step {warm_ms:.1f} ms "
+        f"(mean of steps 2-{TRAIN_STEPS}, host clock after synchronize; "
+        f"{', '.join(f'{1e3 * t:.1f}' for t in times)}); peak device memory "
+        f"{peak:.1f} GiB ({card})")
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    norm_ms = sum(e.self_device_time_total for e in rows
+                  if "channel_norm" in e.key) / 1e3
+    log(f"profiled step: wall {step_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+        f"({busy_ms / step_ms:.0%}); ChannelNorm kernels {norm_ms:.2f} ms; "
+        f"top kernels by device time:")
+    for e in rows[:12]:
+        print(f"    {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} "
+              f"{e.key[:90]}")
+    return fwd, bwd, {"warm_ms": warm_ms, "copies_per_step": per_step[-1][2]}
 
 
 def smooth_image(seed: int) -> np.ndarray:
@@ -266,18 +612,23 @@ def main() -> int:
     from hific_tpu_torch.entropy.container import load_compressed
     from hific_tpu_torch.models.layers import Norm
     from hific_tpu_torch.ops import fused_norm
+    from hific_tpu_torch.runtime import fp32_numerics
 
-    # Phase 2: build.
+    # Phase 2: build, both compilers at once.
     t0 = time.perf_counter()
-    fused_norm.KERNEL.library()
-    built = fused_norm.KERNEL.built
-    log(f"built channel_norm.cu in {built.seconds:.1f} s (plain nvcc) -> "
-        f"{os.path.relpath(built.path)}")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        norm_job = pool.submit(fused_norm.LIBRARY.load)
+        rans_job = pool.submit(native_build.build_library, "rans",
+                               [native.SOURCE],
+                               ["g++"] + native_build.GXX_FLAGS)
+        norm_job.result()
+        rans = rans_job.result()
+    built = fused_norm.LIBRARY.built
+    log(f"built channel_norm.cu (forward + backward) in {built.seconds:.1f} "
+        f"s (plain nvcc) -> {os.path.relpath(built.path)}")
     for line in built.log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling" in line:
             print("  ptxas:", line.strip())
-    rans = native_build.build_library("rans", [native.SOURCE],
-                                      ["g++"] + native_build.GXX_FLAGS)
     log(f"built rans.cc in {rans.seconds:.1f} s (g++); builds took "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -291,7 +642,19 @@ def main() -> int:
         f"{summary['ms']:.3f} ms, plain {summary['plain_ms']:.3f} ms, bound "
         f"{summary['bound_ms']:.3f} ms ({card})")
 
-    # Phase 4: weights, codec, tables.
+    # Phase 4: the backward kernel at a flagship training step's shapes.
+    train_shapes = train_step_norm_shapes(config, TRAIN_BATCH, TRAIN_CROP)
+    bwd_summary = check_channel_norm_backward(train_shapes, gen)
+    log(f"channel_norm backward: {len(train_shapes)} shapes per step, worst "
+        f"dx err {bwd_summary['worst'][0]:.2e} of row scale, dgamma/dbeta "
+        f"{bwd_summary['worst'][1]:.2e} of column scale; per step kernel "
+        f"{bwd_summary['ms']:.3f} ms, plain {bwd_summary['plain_ms']:.3f} "
+        f"ms, bound {bwd_summary['bound_ms']:.3f} ms; forward per step "
+        f"kernel {bwd_summary['fwd_ms']:.3f} ms, plain "
+        f"{bwd_summary['fwd_plain_ms']:.3f} ms, bound "
+        f"{bwd_summary['fwd_bound_ms']:.3f} ms ({card})")
+
+    # Phase 5: weights, codec, tables.
     log(f"weights: {source}")
     t0 = time.perf_counter()
     codec = Codec(config, state, device="cuda")
@@ -301,7 +664,7 @@ def main() -> int:
     codec.build_tables()
     log(f"tables built in {time.perf_counter() - t0:.1f} s")
 
-    # Phase 5: the round trip.
+    # Phase 6: the round trip.
     x = smooth_image(SEED)
     seen = []
     hooks = [m.register_forward_pre_hook(
@@ -347,14 +710,15 @@ def main() -> int:
     # The card's transforms against the plain CPU path on a small crop.
     crop = x[:, :64, :64]
     cpu = Codec(config, state, device="cpu")
-    y_gpu, _ = codec.model.encode(codec._model_input(crop))
-    y_cpu, _ = cpu.model.encode(cpu._model_input(crop))
+    with torch.inference_mode(), fp32_numerics(deterministic=True):
+        y_gpu, _ = codec.model.encode(codec._model_input(crop))
+        y_cpu, _ = cpu.model.encode(cpu._model_input(crop))
     # Latents are unnormalized (trained ones reach tens): compare relative
     # to their largest magnitude; pixels live in [0, 1].
     enc_err = float((y_gpu.cpu() - y_cpu).abs().max()
                     / y_cpu.abs().max().clamp_min(1.0))
     y_hat = torch.from_numpy(y_dec[:, :, :4, :4]).float()
-    with torch.inference_mode():
+    with torch.inference_mode(), fp32_numerics(deterministic=True):
         r_gpu = codec.model.generate(
             y_hat.cuda().contiguous(memory_format=torch.channels_last),
             (64, 64)).cpu()
@@ -369,19 +733,49 @@ def main() -> int:
         f"of their largest magnitude, reconstruction max abs diff "
         f"{gen_err:.2e} (limits 1e-3)")
 
+    del codec, cpu
+    torch.cuda.empty_cache()
+
+    # Phase 7: a tiny training step, card against the CPU's plain path.
+    log(tiny_step_card_vs_cpu())
+
+    # Phase 8: flagship-width training steps through the trainer.
+    torch.cuda.reset_peak_memory_stats()
+    fwd_launches, bwd_launches, train = train_flagship(card, len(train_shapes))
+
     log(f"total wall time {time.perf_counter() - T_START:.1f} s ({card})")
     print(json.dumps({"kernels": [{
         "name": "channel_norm",
         "route": "cuda",
         "source": "hific_tpu_torch/csrc/channel_norm.cu",
         "replaces": "hific_tpu/ops/pallas_norm.py:49",
-        "launches": launches,
+        "launches": launches + fwd_launches,
+        "launches_by_path": {"codec_round_trip": launches,
+                             "train_steps": fwd_launches},
         "max_abs_err": summary["max_abs_err"],
         "ms": summary["ms"],
         "plain_ms": summary["plain_ms"],
         "bound_ms": summary["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
+        "train_step_ms": bwd_summary["fwd_ms"],
+        "train_step_plain_ms": bwd_summary["fwd_plain_ms"],
+        "train_step_bound_ms": bwd_summary["fwd_bound_ms"],
+    }, {
+        "name": "channel_norm_backward",
+        "route": "cuda",
+        "source": "hific_tpu_torch/csrc/channel_norm.cu",
+        "replaces": "hific_tpu/ops/pallas_norm.py:74",
+        "launches": bwd_launches,
+        "launches_by_path": {"train_steps": bwd_launches},
+        "max_abs_err": bwd_summary["max_abs_err"],
+        "ms": bwd_summary["ms"],
+        "plain_ms": bwd_summary["plain_ms"],
+        "bound_ms": bwd_summary["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "g_copies_per_step": train["copies_per_step"],
+        "warm_train_step_ms": train["warm_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))

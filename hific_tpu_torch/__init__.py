@@ -1,8 +1,10 @@
-"""hific_tpu_torch: the HiFiC codec in PyTorch for one NVIDIA H100.
+"""hific_tpu_torch: HiFiC in PyTorch for one NVIDIA H100.
 
 A port of the JAX package `hific_tpu` beside it, which stays the reference
-that this package is held against. Plain convolutions run in cuDNN through
-torch; the TPU package's Pallas kernel is a hand-written CUDA kernel here
+that this package is held against: the codec (`codec.py`) and the
+compression training stage (`cli/train.py`). Plain convolutions run in
+cuDNN through torch; the TPU package's Pallas kernel, ChannelNorm, is a
+pair of hand-written CUDA kernels here, forward and backward
 (`csrc/channel_norm.cu`). Entry points run on `cuda` unless the caller
 passes `device="cpu"`.
 """

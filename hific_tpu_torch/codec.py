@@ -29,15 +29,16 @@ from hific_tpu_torch.entropy.entropy_models import (
     FactorizedEntropyModel,
 )
 from hific_tpu_torch.models.hific import HiFiC
+from hific_tpu_torch.runtime import fp32_numerics, resolve_device
 
 
-def resolve_device(device=None) -> torch.device:
-    """`cuda` unless the caller names another device; no silent CPU."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available: pass device='cpu' to run "
-                           "hific_tpu_torch on the CPU")
-    return device
+# The device work of the codec's methods runs in fp32 with TF32 off and
+# deterministic cuDNN. TF32 keeps ~3 digits, enough to move sigma across a
+# scale-table boundary, and an index that differs between encoder and decoder
+# desyncs the rANS lanes; deterministic algorithms keep the encoder's and the
+# decoder's synth_stats bit-identical on one card. The settings hold for the
+# call only, so a trainer in the same process keeps its own.
+_codec_numerics = fp32_numerics(deterministic=True)
 
 
 def _numpy(t: torch.Tensor, dtype) -> np.ndarray:
@@ -49,16 +50,6 @@ class Codec:
 
     def __init__(self, config: Config, state_dict, device=None):
         self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            # cuDNN runs fp32 convolutions in TF32 by default. TF32 keeps ~3
-            # digits, enough to move sigma across a scale-table boundary, and
-            # an index that differs between encoder and decoder desyncs the
-            # rANS lanes. Deterministic algorithms keep the encoder's and the
-            # decoder's synth_stats bit-identical on one card.
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.deterministic = True
-            torch.backends.cudnn.benchmark = False
         self.config = config
         model = HiFiC(config)
         model.load_state_dict(state_dict)
@@ -91,6 +82,7 @@ class Codec:
             x = x.to(torch.float32)
         return x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
 
+    @_codec_numerics
     @torch.inference_mode()
     def encode_symbols(self, x):
         """Image -> numpy (z_sym, y_sym, idx) in NCHW int32, the hyperlatent
@@ -130,6 +122,7 @@ class Codec:
             total_bpp=(hyper_bits + latent_bits) / n_pixels,
         )
 
+    @_codec_numerics
     @torch.inference_mode()
     def decode_symbols(self, out: CompressionOutput
                        ) -> Tuple[np.ndarray, np.ndarray, torch.Tensor]:
@@ -148,6 +141,7 @@ class Codec:
                                                    _numpy(idx, np.int32))
         return z_np, y_np, mu
 
+    @_codec_numerics
     @torch.inference_mode()
     def decompress(self, out: CompressionOutput, as_uint8: bool = False
                    ) -> np.ndarray:

@@ -2,8 +2,9 @@
 
 Kept field for field so that an artifact's `__config_json__` (written by the
 JAX package's `export_params_npz`) parses unchanged with `Config.from_json`.
-Only the fields the evaluation codec reads change what this package does;
-the training fields ride along so that configs round-trip.
+The codec and the compression trainer read it; the fields of the GAN stage
+(`discriminator_steps`, `beta`, `gan_loss_type`) ride along so that configs
+round-trip.
 """
 
 import dataclasses
@@ -101,6 +102,10 @@ class Config:
         return "channel" if self.use_channel_norm else "instance"
 
     @property
+    def use_discriminator(self):
+        return self.model_type == ModelTypes.COMPRESSION_GAN
+
+    @property
     def effective_latent_channels(self):
         return (self.latent_channels_dlmm if self.use_latent_mixture_model
                 else self.latent_channels)
@@ -119,3 +124,9 @@ class Config:
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
+
+
+def mse_lpips_config(**kw) -> Config:
+    """Rate + MSE + LPIPS, no discriminator: the first training stage."""
+    kw.setdefault("model_type", ModelTypes.COMPRESSION)
+    return Config(**kw)

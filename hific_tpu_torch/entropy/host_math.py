@@ -21,7 +21,9 @@ library as XLA's constant folder does:
 - logistic: 1 / (exp(-x) + 1);
 - small batched matrix products: a fused multiply-add chain over k in order;
 - folded constants: softplus(H) with the C library's expf and log1pf, and a
-  correctly rounded tanh(a).
+  correctly rounded tanh(a);
+- the products that LLVM hoists out of a loop, which XLA's CPU code then
+  computes unfused (`xla_unfused_samples`, below).
 
 tests/test_torch_entropy.py holds the tables built from these against the
 JAX package's, for the tiny model and for the flagship artifact's density.
@@ -32,6 +34,11 @@ import ctypes.util
 import functools
 
 import numpy as np
+
+try:  # numpy >= 2
+    from numpy._core._multiarray_umath import __cpu_features__ as _CPU
+except ImportError:  # numpy 1.x
+    from numpy.core._multiarray_umath import __cpu_features__ as _CPU
 
 F32 = np.float32
 F64 = np.float64
@@ -183,22 +190,78 @@ def tanh_folded(a) -> np.ndarray:
     return np.tanh(np.asarray(a, F64)).astype(F32)
 
 
+def xla_vector_lanes() -> int:
+    """float32 lanes of the vectors XLA's CPU code uses on this host: XLA
+    asks LLVM for 256-bit vectors ("prefer-vector-width"="256") and gets
+    them wherever the host CPU has AVX (CPUID, read here through numpy's
+    own detection, as LLVM reads it for XLA)."""
+    return 8 if _CPU.get("AVX", False) else 4
+
+
+def xla_unfused_samples(m: int) -> int:
+    """How many leading samples of a row of m XLA computes as an unfused
+    c * x, then + b, in the first density layer, when that layer's
+    softplus(H_0) is one value for every channel.
+
+    XLA then folds the layer into a scalar multiply ahead of the broadcast
+    over its three output rows. The fusion loops over channels, over the
+    three rows and, innermost, over the m samples; LLVM vectorizes the
+    sample loop (8 lanes, interleaved 1, 2 or 4 times by the trip count),
+    unrolls it fully below 256 samples, and hoists the products of its
+    first (vector) iteration out of the loop over the rows, where they are
+    no longer next to the add they would fuse with. Read from the LLVM
+    code XLA dumps for that fusion (`--xla_dump_to`) and measured over
+    m = 3..300 on an AVX-512 host, which XLA also runs with 8 lanes. Not
+    measured on a host without AVX, where the vectors have 4 lanes: there
+    this returns 0, the fused arithmetic of a trained density.
+    """
+    if xla_vector_lanes() != 8 or m < 3 or m >= 256:
+        return 0
+    if m < 28:
+        return 1   # scalar loop: its first iteration is hoisted
+    if m < 32:
+        return 8   # one 8-lane vector
+    if m < 48:
+        return 32  # 8 lanes x 4
+    if m < 64:
+        return 16  # 8 lanes x 2
+    return 32
+
+
+def _unfused_last_dot_sample(m: int) -> bool:
+    """Whether XLA computes the last sample of a row of m unfused in the
+    last layer's product (3 -> 1 filters): measured for m % 8 == 1, m >= 9,
+    where that sample is the single-element remainder of the 8-lane loop."""
+    return xla_vector_lanes() == 8 and m >= 9 and m % 8 == 1
+
+
 def factorized_cdf_logits(params, x) -> np.ndarray:
     """CDF logits of the factorized density at x (C, 1, M) float32.
 
     params: {'H_k', 'a_k', 'b_k'} float32 numpy arrays, k = 0..K-1.
     """
     logits = np.asarray(x, F32)
+    m = logits.shape[-1]
     n_layers = sum(1 for name in params if name.startswith("H_"))
     for k in range(n_layers):
         h = softplus_folded(params[f"H_{k}"])      # (C, f_out, f_in)
         b = np.asarray(params[f"b_{k}"], F32)      # (C, f_out, 1)
         if h.shape[2] == 1:
-            logits = fma(h, logits, b)
+            fused = fma(h, logits, b)
+            n = xla_unfused_samples(m) if np.all(h == h.flat[0]) else 0
+            if n:
+                unfused = add(mul(h, logits[..., :n]), b)
+                fused[..., :n] = unfused
+            logits = fused
         else:
             acc = mul(h[:, :, 0:1], logits[:, 0:1, :])
             for j in range(1, h.shape[2]):
-                acc = fma(h[:, :, j:j + 1], logits[:, j:j + 1, :], acc)
+                acc_j = fma(h[:, :, j:j + 1], logits[:, j:j + 1, :], acc)
+                if h.shape[1] == 1 and _unfused_last_dot_sample(m):
+                    acc_j[..., -1:] = add(
+                        mul(h[:, :, j:j + 1], logits[:, j:j + 1, -1:]),
+                        acc[..., -1:])
+                acc = acc_j
             logits = add(acc, b)
         logits = fma(tanh(logits), tanh_folded(params[f"a_{k}"]), logits)
     return logits

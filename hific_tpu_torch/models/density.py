@@ -6,6 +6,9 @@ package's `models/density.py`.
   1-D maps evaluated for all channels at once as batched matrix products.
 - `latent_likelihood`: the boxcar-convolved Gaussian/logistic likelihood of
   the conditional latent prior.
+
+Both bound their likelihoods with `lower_bound_toward`, whose gradient rule
+is the JAX package's, so they train as they do there.
 """
 
 import numpy as np
@@ -82,8 +85,9 @@ class HyperlatentDensity(nn.Module):
         """Likelihood of x of shape (C, 1, M)."""
         upper = self.cdf_logits(x + 0.5)
         lower = self.cdf_logits(x - 0.5)
-        # The sigmoid difference in whichever tail is more stable.
-        sign = -torch.sign(upper + lower)
+        # The sigmoid difference in whichever tail is more stable; the sign
+        # is a constant of the gradient, as in the JAX package.
+        sign = -torch.sign(upper + lower).detach()
         lik = torch.abs(torch.sigmoid(sign * upper) - torch.sigmoid(sign * lower))
         return lower_bound_toward(lik, self.min_likelihood)
 

@@ -1,11 +1,13 @@
-"""HiFiC facade: Encoder -> Hyperprior -> Generator, evaluation methods.
+"""HiFiC facade: Encoder -> Hyperprior -> Generator.
 
-Counterpart of the codec-side methods of the JAX package's
-`models/hific.py` (`encode`, `code_hyper`, `synth_stats`, `latent_symbols`,
-`compress_front`, `generate`). Tensors are NCHW, stored channels-last.
+Counterpart of the JAX package's `models/hific.py`: the training forward
+(`HiFiC.__call__`, here `forward`) and the codec-side methods (`encode`,
+`code_hyper`, `synth_stats`, `latent_symbols`, `compress_front`,
+`generate`). Tensors are NCHW, stored channels-last.
 """
 
 import math
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -14,9 +16,17 @@ from hific_tpu_torch.config import Config
 from hific_tpu_torch.models.density import HyperlatentDensity, latent_likelihood
 from hific_tpu_torch.models.encoder import Encoder
 from hific_tpu_torch.models.generator import Generator
-from hific_tpu_torch.models.hyperprior import Hyperprior
+from hific_tpu_torch.models.hyperprior import HyperInfo, Hyperprior
 from hific_tpu_torch.models.layers import Conv, ConvTranspose
 from hific_tpu_torch.ops.padding import pad_factor
+
+
+class Intermediates(NamedTuple):
+    input_image: torch.Tensor      # [0, 1] (or [-1, 1] if normalized)
+    reconstruction: torch.Tensor
+    latents_quantized: torch.Tensor
+    n_bpp: torch.Tensor            # differential-entropy estimate
+    q_bpp: torch.Tensor            # Shannon-entropy estimate
 
 
 def _bits(likelihood) -> torch.Tensor:
@@ -37,7 +47,24 @@ class HiFiC(nn.Module):
         C = config.effective_latent_channels
         self.encoder = Encoder(C)
         self.generator = Generator(C, config.n_residual_blocks)
-        self.hyperprior = Hyperprior(C, config.hyperlatent_filters)
+        self.hyperprior = Hyperprior(C, config.hyperlatent_filters,
+                                     likelihood_type=config.likelihood_type)
+
+    def forward(self, x, generator: Optional[torch.Generator] = None,
+                training: bool = True):
+        """Compression forward of training (and validation, with
+        `training=False`): x (N, 3, H, W), H and W multiples of 64, no
+        padding. The quantization noise comes from `generator`. Returns
+        (Intermediates, HyperInfo)."""
+        spatial_shape = tuple(x.shape[2:])
+        y = self.encoder(x)
+        info: HyperInfo = self.hyperprior(y, spatial_shape, generator,
+                                          training)
+        reconstruction = self.generator(info.decoded)
+        if self.config.normalize_input_image:
+            reconstruction = torch.tanh(reconstruction)
+        return Intermediates(x, reconstruction, info.decoded,
+                             info.total_nbpp, info.total_qbpp), info
 
     def encode(self, x):
         """Image (N, 3, H, W) -> latents padded for the hyperprior, and the

@@ -1,20 +1,54 @@
-"""Hyperprior bottleneck, evaluation part; counterpart of the JAX package's
-`models/hyperprior.py` (`analyze`, `synthesize`, the hyperlatent density).
-The training forward (noisy quantization, bpp estimates) belongs to the
-training slice."""
+"""Hyperprior bottleneck; counterpart of the JAX package's
+`models/hyperprior.py` (`analyze`, `synthesize`, the hyperlatent density,
+and the training forward).
 
+The training forward computes both the noisy (differential-entropy) and the
+quantized (Shannon-entropy) bpp estimates of latents and hyperlatents,
+feeds the noisy hyperlatents to the synthesis transforms while training,
+and returns the straight-through-quantized latents for the generator. Its
+uniform noise comes from the `torch.Generator` the caller passes.
+"""
+
+from typing import NamedTuple, Optional, Sequence
+
+import torch
 from torch import nn
 
-from hific_tpu_torch.models.density import MIN_SCALE, HyperlatentDensity
+from hific_tpu_torch.models.density import (
+    MIN_SCALE,
+    HyperlatentDensity,
+    latent_likelihood,
+)
 from hific_tpu_torch.models.hyper import HyperpriorAnalysis, HyperpriorSynthesis
 from hific_tpu_torch.ops.maths import lower_bound_toward
+from hific_tpu_torch.ops.quantize import (
+    estimate_entropy,
+    quantize_noise,
+    quantize_round,
+    quantize_ste,
+)
+
+
+class HyperInfo(NamedTuple):
+    decoded: torch.Tensor           # STE-quantized latents for the generator
+    latent_nbpp: torch.Tensor       # noisy (differential) bpp, latents
+    hyperlatent_nbpp: torch.Tensor
+    total_nbpp: torch.Tensor
+    latent_qbpp: torch.Tensor       # quantized (Shannon) bpp
+    hyperlatent_qbpp: torch.Tensor
+    total_qbpp: torch.Tensor
+    latent_means: torch.Tensor      # (mu, sigma) of the conditional prior
+    latent_scales: torch.Tensor
+    hyperlatents: torch.Tensor      # before quantization
 
 
 class Hyperprior(nn.Module):
     def __init__(self, C: int = 220, hyperlatent_filters: int = 320,
-                 scale_lower_bound: float = MIN_SCALE):
+                 scale_lower_bound: float = MIN_SCALE,
+                 likelihood_type: str = "gaussian"):
         super().__init__()
         self.scale_lower_bound = scale_lower_bound
+        self.likelihood_type = likelihood_type
         self.analysis_net = HyperpriorAnalysis(C, hyperlatent_filters)
         self.synthesis_mu = HyperpriorSynthesis(C, hyperlatent_filters)
         self.synthesis_std = HyperpriorSynthesis(C, hyperlatent_filters)
@@ -25,7 +59,44 @@ class Hyperprior(nn.Module):
 
     def synthesize(self, hyperlatents_decoded):
         """(mu, sigma) of the conditional latent prior; one function for the
-        encoder and the decoder side."""
+        training forward, the encoder and the decoder side."""
         mu = self.synthesis_mu(hyperlatents_decoded)
         scale = self.synthesis_std(hyperlatents_decoded)
         return mu, lower_bound_toward(scale, self.scale_lower_bound)
+
+    def forward(self, latents, spatial_shape: Sequence[int],
+                generator: Optional[torch.Generator] = None,
+                training: bool = True) -> HyperInfo:
+        """Training/validation forward; spatial_shape is the (H, W) of the
+        ORIGINAL image, the bpp normalizer. The hyperlatents are noised
+        before the latents, as in the JAX package."""
+        hyperlatents = self.analysis_net(latents)
+
+        noisy_hyper = quantize_noise(hyperlatents, generator)
+        _, hyper_nbpp = estimate_entropy(
+            self.hyperlatent_density(noisy_hyper), spatial_shape)
+        quant_hyper = quantize_round(hyperlatents)
+        _, hyper_qbpp = estimate_entropy(
+            self.hyperlatent_density(quant_hyper), spatial_shape)
+
+        mu, scale = self.synthesize(noisy_hyper if training else quant_hyper)
+
+        noisy_latents = quantize_noise(latents, generator)
+        _, latent_nbpp = estimate_entropy(latent_likelihood(
+            noisy_latents, mu, scale, self.likelihood_type), spatial_shape)
+        quant_latents = quantize_round(latents, means=mu)
+        _, latent_qbpp = estimate_entropy(latent_likelihood(
+            quant_latents, mu, scale, self.likelihood_type), spatial_shape)
+
+        return HyperInfo(
+            decoded=quantize_ste(latents, means=mu),
+            latent_nbpp=latent_nbpp,
+            hyperlatent_nbpp=hyper_nbpp,
+            total_nbpp=latent_nbpp + hyper_nbpp,
+            latent_qbpp=latent_qbpp,
+            hyperlatent_qbpp=hyper_qbpp,
+            total_qbpp=latent_qbpp + hyper_qbpp,
+            latent_means=mu,
+            latent_scales=scale,
+            hyperlatents=hyperlatents,
+        )

@@ -1,11 +1,19 @@
-"""Fused ChannelNorm (+ReLU): the CUDA kernel `csrc/channel_norm.cu` and its
-plain PyTorch version.
+"""Fused ChannelNorm (+ReLU): the CUDA kernels of `csrc/channel_norm.cu`
+(forward and backward) and their plain PyTorch versions.
 
-The kernel replaces the Pallas TPU kernel `hific_tpu/ops/pallas_norm.py`
-(forward). It reads the channels-last rows of an NCHW tensor, so the
-wrapper takes only tensors that are contiguous in `torch.channels_last`
-and raises on anything else instead of copying. A tensor on the CPU takes
-the plain version; a CUDA tensor launches the kernel or raises.
+The kernels replace the Pallas TPU kernel `hific_tpu/ops/pallas_norm.py`:
+its forward (`_channel_norm_fwd_pallas`) and the closed-form backward of
+its `custom_vjp` (`_cn_bwd`). The forward reads the channels-last rows of
+an NCHW tensor, so the wrapper takes only tensors that are contiguous in
+`torch.channels_last` and raises on anything else instead of copying. In
+the backward autograd decides the layout of the incoming gradient, so a
+gradient that is not channels-last is copied, and counted.
+
+`channel_norm_fused` records an autograd edge only where a gradient is
+wanted: then `_ChannelNormFn` runs the forward and, in the backward, the
+backward kernel. Under `torch.no_grad()` or `torch.inference_mode()` only
+the forward runs and nothing is saved. A tensor on the CPU takes the plain
+versions; a CUDA tensor launches the kernels or raises.
 """
 
 import ctypes
@@ -21,37 +29,62 @@ SOURCE = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc",
                       "channel_norm.cu")
 MAX_CHANNELS = 1024
 ACTS = ("none", "relu")
+ROWS_PER_BLOCK = 8     # kRowsPerBlock in channel_norm.cu
+BWD_MAX_BLOCKS = 528   # kBwdMaxBlocks in channel_norm.cu
+
+_FWD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int,
+                                         ctypes.c_float, ctypes.c_int,
+                                         ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int64, ctypes.c_int,
+                                         ctypes.c_float, ctypes.c_int,
+                                         ctypes.c_int, ctypes.c_void_p]
 
 
-class ChannelNormKernel:
-    """The built library and its launch count (kernel launches only)."""
+class ChannelNormLibrary:
+    """The built library of `channel_norm.cu`, shared by both kernels."""
 
     def __init__(self):
-        self.launches = 0
         self.built = None
         self._lib = None
         self._lock = threading.Lock()
 
-    def library(self) -> ctypes.CDLL:
+    def load(self) -> ctypes.CDLL:
         with self._lock:
             if self._lib is None:
                 self.built = native_build.build_library(
                     "channel_norm", [SOURCE],
                     [native_build.nvcc()] + native_build.NVCC_FLAGS)
                 lib = ctypes.CDLL(self.built.path)
-                for fn in (lib.hific_channel_norm_f32,
-                           lib.hific_channel_norm_bf16):
+                for name, argtypes in (
+                        ("hific_channel_norm_f32", _FWD_ARGTYPES),
+                        ("hific_channel_norm_bf16", _FWD_ARGTYPES),
+                        ("hific_channel_norm_bwd_f32", _BWD_ARGTYPES),
+                        ("hific_channel_norm_bwd_bf16", _BWD_ARGTYPES)):
+                    fn = getattr(lib, name)
                     fn.restype = ctypes.c_int
-                    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                   ctypes.c_void_p, ctypes.c_void_p,
-                                   ctypes.c_int64, ctypes.c_int,
-                                   ctypes.c_float, ctypes.c_int,
-                                   ctypes.c_void_p]
+                    fn.argtypes = argtypes
                 self._lib = lib
             return self._lib
 
+
+LIBRARY = ChannelNormLibrary()
+
+
+def _raise_on(err: int, what: str, x: torch.Tensor) -> None:
+    if err != 0:
+        n, c, h, w = x.shape
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} "
+                           f"(M={n * h * w}, C={c}, dtype={x.dtype})")
+
+
+class ChannelNormKernel:
+    """The forward kernel and its launch count (kernel launches only)."""
+
+    def __init__(self):
+        self.launches = 0
+
     def launch(self, x, gamma, beta, out, eps: float, relu: bool) -> None:
-        lib = self.library()
+        lib = LIBRARY.load()
         fn = (lib.hific_channel_norm_f32 if x.dtype == torch.float32
               else lib.hific_channel_norm_bf16)
         n, c, h, w = x.shape
@@ -59,38 +92,89 @@ class ChannelNormKernel:
             stream = torch.cuda.current_stream(x.device).cuda_stream
             err = fn(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
                      out.data_ptr(), n * h * w, c, eps, int(relu), stream)
-        if err != 0:
-            raise RuntimeError(f"channel_norm kernel launch failed: CUDA "
-                               f"error {err} (M={n * h * w}, C={c}, "
-                               f"dtype={x.dtype})")
+        _raise_on(err, "channel_norm", x)
         self.launches += 1
 
 
+class ChannelNormBackwardKernel:
+    """The backward kernel, its launch count, and the count of incoming
+    gradients that were not channels-last and had to be copied (on any
+    device)."""
+
+    def __init__(self):
+        self.launches = 0
+        self.g_copies = 0
+
+    def launch(self, x, g, gamma, beta, dx, eps: float, relu: bool):
+        """Writes dx; returns the (2, C) fp32 tensor (dgamma, dbeta)."""
+        lib = LIBRARY.load()
+        fn = (lib.hific_channel_norm_bwd_f32 if x.dtype == torch.float32
+              else lib.hific_channel_norm_bwd_bf16)
+        n, c, h, w = x.shape
+        m = n * h * w
+        blocks = max(1, min(-(-m // ROWS_PER_BLOCK), BWD_MAX_BLOCKS))
+        partial = torch.empty((blocks, 2, c), dtype=torch.float32,
+                              device=x.device)
+        dgb = torch.empty((2, c), dtype=torch.float32, device=x.device)
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = fn(x.data_ptr(), g.data_ptr(), gamma.data_ptr(),
+                     beta.data_ptr(), dx.data_ptr(), partial.data_ptr(),
+                     dgb.data_ptr(), m, c, eps, int(relu), blocks, stream)
+        _raise_on(err, "channel_norm backward", x)
+        self.launches += 1
+        return dgb
+
+
 KERNEL = ChannelNormKernel()
+BACKWARD_KERNEL = ChannelNormBackwardKernel()
 
 
 def channel_norm_fused_reference(x, gamma, beta, eps: float = 1e-3,
                                  act: str = "none"):
-    """Plain PyTorch version of the kernel: fp32 math, output in x's dtype."""
+    """Plain PyTorch version of the forward kernel: fp32 math, output in x's
+    dtype."""
     y = channel_norm(x.float(), gamma.float(), beta.float(), eps)
     if act == "relu":
         y = torch.relu(y)
     return y.to(x.dtype)
 
 
-def channel_norm_fused(x, gamma, beta, eps: float = 1e-3, act: str = "none"):
-    """ChannelNorm(+act) of NCHW `x` stored channels-last; gamma, beta (C,)."""
+def channel_norm_backward_reference(x, gamma, beta, g, eps: float = 1e-3,
+                                    act: str = "none"):
+    """Plain PyTorch version of the backward kernel, the closed form of the
+    JAX package's `_cn_bwd`: (dx, dgamma, dbeta), all fp32."""
+    c = x.shape[1]
+    x = x.float()
+    g = g.float()
+    gamma = gamma.float().view(1, c, 1, 1)
+    beta = beta.float().view(1, c, 1, 1)
+    centered = x - x.mean(dim=1, keepdim=True)
+    var = (centered * centered).sum(dim=1, keepdim=True) / (c - 1)
+    r = torch.rsqrt(var + eps)
+    x_hat = centered * r
+    if act == "relu":
+        g = g * (x_hat * gamma + beta > 0.0)
+    dgamma = (g * x_hat).sum(dim=(0, 2, 3))
+    dbeta = g.sum(dim=(0, 2, 3))
+    d = g * gamma
+    dx = r * (d - d.mean(dim=1, keepdim=True)
+              - x_hat * (d * x_hat).sum(dim=1, keepdim=True) / (c - 1))
+    return dx, dgamma, dbeta
+
+
+def _check(x, gamma, beta, act: str) -> None:
     if act not in ACTS:
         raise ValueError(f"act must be one of {ACTS}, got {act!r}")
     if x.dim() != 4 or not x.is_contiguous(memory_format=torch.channels_last):
         raise ValueError("channel_norm_fused takes an NCHW tensor that is "
                          "contiguous in torch.channels_last")
-    n, c, h, w = x.shape
+    c = x.shape[1]
     if gamma.shape != (c,) or beta.shape != (c,):
         raise ValueError(f"gamma/beta must have shape ({c},), got "
                          f"{tuple(gamma.shape)} and {tuple(beta.shape)}")
     if x.device.type == "cpu":
-        return channel_norm_fused_reference(x, gamma, beta, eps, act)
+        return
     if x.device.type != "cuda":
         raise ValueError(f"no channel_norm_fused for device {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -104,7 +188,65 @@ def channel_norm_fused(x, gamma, beta, eps: float = 1e-3, act: str = "none"):
     if not 2 <= c <= MAX_CHANNELS:
         raise ValueError(f"channel_norm_fused takes 2 <= C <= {MAX_CHANNELS}"
                          f", got C={c}")
-    out = torch.empty((n, c, h, w), dtype=x.dtype, device=x.device,
+
+
+def _forward(x, gamma, beta, eps: float, act: str):
+    if x.device.type == "cpu":
+        return channel_norm_fused_reference(x, gamma, beta, eps, act)
+    out = torch.empty(x.shape, dtype=x.dtype, device=x.device,
                       memory_format=torch.channels_last)
     KERNEL.launch(x, gamma, beta, out, float(eps), act == "relu")
     return out
+
+
+def channel_norm_backward(x, gamma, beta, g, eps: float = 1e-3,
+                          act: str = "none"):
+    """(dx, dgamma, dbeta) of `channel_norm_fused` at x for the incoming
+    gradient g: the backward kernel on a CUDA tensor, its plain version on a
+    CPU tensor. dx has x's dtype and layout; dgamma and dbeta are fp32."""
+    _check(x, gamma, beta, act)
+    if g.shape != x.shape:
+        raise ValueError(f"gradient shape {tuple(g.shape)} != input shape "
+                         f"{tuple(x.shape)}")
+    if g.dtype != x.dtype or g.device != x.device:
+        raise ValueError(f"gradient {g.dtype} on {g.device} for an input "
+                         f"{x.dtype} on {x.device}")
+    if not g.is_contiguous(memory_format=torch.channels_last):
+        g = g.contiguous(memory_format=torch.channels_last)
+        BACKWARD_KERNEL.g_copies += 1
+    if x.device.type == "cpu":
+        dx, dgamma, dbeta = channel_norm_backward_reference(
+            x, gamma, beta, g, eps, act)
+        return (dx.to(x.dtype).contiguous(memory_format=torch.channels_last),
+                dgamma, dbeta)
+    dx = torch.empty(x.shape, dtype=x.dtype, device=x.device,
+                     memory_format=torch.channels_last)
+    dgb = BACKWARD_KERNEL.launch(x, g, gamma, beta, dx, float(eps),
+                                 act == "relu")
+    return dx, dgb[0], dgb[1]
+
+
+class _ChannelNormFn(torch.autograd.Function):
+    """ChannelNorm(+act) with the backward kernel as its gradient."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps, act):
+        ctx.save_for_backward(x, gamma, beta)
+        ctx.eps, ctx.act = eps, act
+        return _forward(x, gamma, beta, eps, act)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, gamma, beta = ctx.saved_tensors
+        dx, dgamma, dbeta = channel_norm_backward(x, gamma, beta, g, ctx.eps,
+                                                  ctx.act)
+        return dx, dgamma, dbeta, None, None
+
+
+def channel_norm_fused(x, gamma, beta, eps: float = 1e-3, act: str = "none"):
+    """ChannelNorm(+act) of NCHW `x` stored channels-last; gamma, beta (C,)."""
+    _check(x, gamma, beta, act)
+    if torch.is_grad_enabled() and (x.requires_grad or gamma.requires_grad
+                                    or beta.requires_grad):
+        return _ChannelNormFn.apply(x, gamma, beta, float(eps), act)
+    return _forward(x, gamma, beta, float(eps), act)

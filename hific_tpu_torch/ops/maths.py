@@ -1,9 +1,9 @@
-"""Evaluation-time maths of the bottleneck: bounds, CDFs, quantiles and the
-PMF -> integer-CDF quantizer of the entropy coder.
+"""Maths of the bottleneck: lower bounds with their gradient rules, CDFs,
+quantiles and the PMF -> integer-CDF quantizer of the entropy coder.
 
-Counterpart of the JAX package's `ops/maths.py`. Only the forward values
-are needed for coding, so `lower_bound_toward` is a clamp here; its
-gradient rule belongs to the training slice.
+Counterpart of the JAX package's `ops/maths.py`. The two lower bounds are
+`torch.autograd.Function`s with the gradient rules of the JAX package's
+`custom_vjp`s, so the density and the scale bound train as they do there.
 """
 
 import math
@@ -15,9 +15,37 @@ import torch
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 
 
+class _LowerBoundIdentity(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, bound):
+        return torch.clamp_min(x, bound)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _LowerBoundToward(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, bound):
+        ctx.save_for_backward(x >= bound)
+        return torch.clamp_min(x, bound)
+
+    @staticmethod
+    def backward(ctx, g):
+        (above,) = ctx.saved_tensors
+        return g * (above | (g < 0)).to(g.dtype), None
+
+
+def lower_bound_identity(x: torch.Tensor, bound: float) -> torch.Tensor:
+    """max(x, bound); the gradient passes through unchanged."""
+    return _LowerBoundIdentity.apply(x, bound)
+
+
 def lower_bound_toward(x: torch.Tensor, bound: float) -> torch.Tensor:
-    """max(x, bound) (forward of the gradient-gated lower bound)."""
-    return torch.clamp_min(x, bound)
+    """max(x, bound); the gradient passes where x >= bound, or where it is
+    negative (a descent step then pushes x up toward the bound)."""
+    return _LowerBoundToward.apply(x, bound)
 
 
 def standardized_cdf_gaussian(value: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""Carry weights across from the JAX package's layout to this package's.
+"""Carry weights across between the JAX package's layout and this
+package's, both ways.
 
 The JAX package stores parameters as a nested tree of NHWC-convention
 arrays and exports them with `export_params_npz`: one `.npz` holding a
@@ -17,14 +18,22 @@ Every conversion is an exact permutation or an exact widening:
 - float16 leaves widen to float32. bfloat16 leaves (written by numpy as raw
   2-byte `|V2` records, since numpy has no bfloat16) are the high half of a
   float32, so they widen exactly by a 16-bit shift.
+
+`jax_params_from_model` inverts these permutations, so what this package
+trains exports in the JAX artifact layout (`training/checkpoints.py`,
+`export_params_npz`). `lpips_state_dict_from_jax` carries the JAX
+package's LPIPS parameters (`models/lpips.py`) to this package's.
 """
 
 from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from hific_tpu_torch.config import Config
+from hific_tpu_torch.models.density import HyperlatentDensity
+from hific_tpu_torch.models.layers import Conv, ConvTranspose, Norm
 
 NPZ_CONFIG_KEY = "__config_json__"
 NPZ_LEAF_PREFIX = "p:"
@@ -103,3 +112,37 @@ def load_npz(path: str) -> Tuple[Config, Dict[str, torch.Tensor]]:
                 key, a = convert_leaf(name[len(NPZ_LEAF_PREFIX):], z[name])
                 state[key] = torch.from_numpy(a)
     return config.replace(dtype="float32"), state
+
+
+def jax_params_from_model(model: nn.Module) -> Dict[str, np.ndarray]:
+    """HiFiC parameters -> {'a/b/c': float32 numpy leaf} in the JAX
+    package's tree and layouts (the inverse of `convert_leaf`)."""
+    flat = {}
+    for name, module in model.named_modules():
+        path = name.replace(".", "/")
+        if isinstance(module, Conv):
+            w = module.weight.detach().cpu().numpy()
+            flat[f"{path}/Conv_0/kernel"] = w.transpose(2, 3, 1, 0)
+            flat[f"{path}/Conv_0/bias"] = module.bias.detach().cpu().numpy()
+        elif isinstance(module, ConvTranspose):
+            w = module.weight.detach().cpu().numpy()
+            flat[f"{path}/kernel"] = w.transpose(2, 3, 0, 1)[::-1, ::-1]
+            flat[f"{path}/bias"] = module.bias.detach().cpu().numpy()
+        elif isinstance(module, (Norm, HyperlatentDensity)):
+            for leaf, p in module.named_parameters(recurse=False):
+                flat[f"{path}/{leaf}"] = p.detach().cpu().numpy()
+    return {k: np.ascontiguousarray(v, np.float32) for k, v in flat.items()}
+
+
+def lpips_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's LPIPS parameter tree (`backbone/convK/{kernel,
+    bias}`, HWIO kernels, and the heads `linK`) -> state_dict for
+    `models.lpips.LPIPS`."""
+    out = {}
+    for path, value in flatten_tree(params).items():
+        a = leaf_to_float32(value)
+        parts = path.split("/")
+        if parts[-1] == "kernel":
+            parts[-1], a = "weight", a.transpose(3, 2, 0, 1)
+        out[".".join(parts)] = torch.from_numpy(np.ascontiguousarray(a))
+    return out
