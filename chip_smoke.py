@@ -15,10 +15,12 @@ and holds every kernel of those paths against its plain PyTorch version:
    (M, C, act) shapes against its plain version (fp32 within 1e-5; bf16
    within one ulp plus 1e-5 at two shapes), with its time, the plain
    version's time and the memory bound;
-4. runs the ChannelNorm backward kernel at each of the 29 norm shapes of a
-   batch-8, 256x256 flagship training step against its plain version, dx,
-   dgamma and dbeta, in fp32 (within 1e-5 of the row's or column's scale)
-   and bf16 (dx within one bf16 ulp more), with the same timings;
+4. runs the ChannelNorm backward kernels (the row kernel and the column
+   sum of its per-block partial sums) at each of the 29 norm shapes of a
+   batch-8, 256x256 flagship training step against their plain version,
+   dx, dgamma and dbeta, in fp32 (within 1e-5 of the row's or column's
+   scale) and bf16 (dx within one bf16 ulp more), twice with the same bits,
+   with the same timings, each kernel also timed alone;
 5. loads the flagship weights (seeded random weights of the same
    configuration where the artifact is absent) and builds the codec and
    its tables;
@@ -297,6 +299,12 @@ def check_channel_norm_backward(shapes, gen):
                 worst = (max(worst[0], dx_rel), max(worst[1], sums_rel))
                 k_ms = cuda_time_ms(lambda: fused_norm.channel_norm_backward(
                     x, gamma, beta, g, act=act))
+                # The two kernels of the backward, each alone.
+                dx_buf = torch.empty_like(x)
+                row_ms, col_ms = (cuda_time_ms(
+                    lambda: fused_norm.BACKWARD_KERNEL.launch(
+                        x, g, gamma, beta, dx_buf, 1e-3, act == "relu",
+                        stages=stages)) for stages in (1, 2))
                 p_ms = cuda_time_ms(
                     lambda: fused_norm.channel_norm_backward_reference(
                         x, gamma, beta, g, act=act))
@@ -315,14 +323,16 @@ def check_channel_norm_backward(shapes, gen):
                         x, gamma, beta, act=act))
                 f_bound = (2 * m * c * 4 + 2 * c * 4) / HBM_BYTES_PER_S * 1e3
                 timed_shapes[(m, c, act)] = (k_ms, p_ms, bound_ms, f_ms,
-                                             fp_ms, f_bound)
+                                             fp_ms, f_bound, row_ms, col_ms)
                 log(f"backward M={m:6d} C={c:3d} {act:4s}: dx err "
                     f"{dx_rel:.1e} of row scale, sums {sums_rel:.1e}, "
-                    f"{kink_rows} rows at the kink; kernel "
-                    f"{k_ms:.4f} ms plain {p_ms:.4f} ms bound "
-                    f"{bound_ms:.4f} ms ({bound_ms / k_ms:.0%} of HBM "
-                    f"roofline); forward kernel {f_ms:.4f} ms plain "
-                    f"{fp_ms:.4f} ms bound {f_bound:.4f} ms")
+                    f"{kink_rows} rows at the kink")
+                print(f"    backward M={m} C={c} {act}: kernel {k_ms:.4f} ms "
+                      f"(row kernel {row_ms:.4f}, column sum {col_ms:.4f}), "
+                      f"plain {p_ms:.4f} ms, bound {bound_ms:.4f} ms, "
+                      f"kernel/bound {k_ms / bound_ms:.2f}; forward kernel "
+                      f"{f_ms:.4f} ms, plain {fp_ms:.4f} ms, bound "
+                      f"{f_bound:.4f} ms", flush=True)
             else:
                 log(f"backward bf16 M={m:6d} C={c:3d} {act:4s}: dx beyond "
                     f"one ulp by {dx_rel:.1e} of row scale at most ({beyond} "
@@ -338,7 +348,12 @@ def check_channel_norm_backward(shapes, gen):
         "fwd_bound_ms": sum(r[5] for r in rows),
         "max_abs_err": max_err,
         "worst": worst,
-        "per_shape": timed_shapes,
+        "per_shape": [
+            {"m": m, "c": c, "act": act,
+             "launches_per_step": sum(1 for s in shapes if s == (m, c, act)),
+             "ms": r[0], "row_kernel_ms": r[6], "column_sum_ms": r[7],
+             "plain_ms": r[1], "bound_ms": r[2]}
+            for (m, c, act), r in timed_shapes.items()],
     }
 
 
@@ -774,6 +789,7 @@ def main() -> int:
         "bound_ms": bwd_summary["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
+        "per_shape": bwd_summary["per_shape"],
         "g_copies_per_step": train["copies_per_step"],
         "warm_train_step_ms": train["warm_ms"],
     }]}))

@@ -19,7 +19,6 @@ from hific_tpu_torch.entropy.tables import (
     SCALES_MIN,
     build_factorized_tables,
     build_scale_tables,
-    estimate_tails,
     prior_scale_table,
 )
 from hific_tpu_torch.models.density import (
@@ -42,15 +41,17 @@ class FactorizedEntropyModel:
         self.tail_mass = float(tail_mass)
         self.precision = int(precision)
         self.tables: Optional[CdfTables] = None
+        self.medians: Optional[np.ndarray] = None
 
     def build_tables(self) -> CdfTables:
-        shape = (self.n_channels, 1, 1)
-        target = float(np.log(2.0 / self.tail_mass - 1.0))
-        lower, upper = (t.reshape(-1).numpy() for t in estimate_tails(
-            self.density.cdf_logits, [-target, target], shape))
-
+        """The tails and medians come from the JAX package's search, step
+        for step in its float32 arithmetic (`host_math.factorized_tails`),
+        so the rows are its rows."""
         params = {name: p.numpy() for name, p in
                   self.density.named_parameters()}
+        target = float(np.log(2.0 / self.tail_mass - 1.0))
+        lower, upper, self.medians = host_math.factorized_tails(
+            params, [-target, target, 0.0])
 
         def likelihood_fn(samples: np.ndarray) -> np.ndarray:
             return host_math.factorized_likelihood(

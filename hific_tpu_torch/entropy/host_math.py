@@ -23,10 +23,19 @@ library as XLA's constant folder does:
 - folded constants: softplus(H) with the C library's expf and log1pf, and a
   correctly rounded tanh(a);
 - the products that LLVM hoists out of a loop, which XLA's CPU code then
-  computes unfused (`xla_unfused_samples`, below).
+  computes unfused (`xla_unfused_samples`, below);
+- the tail search (`factorized_tails`, at the end): the JAX package's Adam
+  loop, whose softplus and tanh are computed by the compiled program, step
+  for step.
+
+The pmf follows XLA's code as it runs on one core (one partition of its
+fusions), whatever the host: at 320 channels and 256 samples or more the
+JAX package's own pmf changes with the number of cores it may use.
 
 tests/test_torch_entropy.py holds the tables built from these against the
-JAX package's, for the tiny model and for the flagship artifact's density.
+JAX package's, for the tiny model and for the flagship artifact's density;
+tests/test_torch_tables_fold.py and tests/test_torch_tails.py hold the
+folded first layer and the tail search.
 """
 
 import ctypes
@@ -275,3 +284,202 @@ def factorized_likelihood(params, x, min_likelihood: float) -> np.ndarray:
     sign = -np.sign(add(upper, lower)).astype(F32)
     lik = np.abs(add(logistic(mul(sign, upper)), -logistic(mul(sign, lower))))
     return np.maximum(lik, F32(min_likelihood))
+
+
+# The tail search of the factorized tables. The JAX package runs it as one
+# `lax.while_loop` whose density parameters are arguments of the compiled
+# program, so softplus(H) and tanh(a) are computed by that program (once,
+# hoisted out of the loop) and not folded by the C library; its body is the
+# forward CDF logits, their gradient and an Adam step. The functions below
+# follow XLA's CPU code of that program (`--xla_dump_to`: the optimized HLO
+# and each fusion's object code), operation by operation. Where LLVM fuses
+# a product into the add that uses it, so do they; where the vector code
+# keeps them apart (the third filter of the first layer, the products with
+# more than one use), so do they. Measured bit-equal, every step, for
+# densities of 8 to 320 channels in multiples of 8 (the loops' 8-lane
+# vectors); with other channel counts XLA emits remainder code that this
+# does not follow.
+
+_LOG1P_RATIONAL = 0.41421357  # |e| below: the rational form of log1p
+
+
+def _exp_compiled(x) -> np.ndarray:
+    """exp(x) as the loop fusions compute it: Cephes' polynomial with fused
+    multiply-adds, x clamped to [-87.8, 88.8], the exponent to +-127."""
+    x = np.asarray(x, F32)
+    x = np.minimum(np.maximum(x, F32(-87.8)), F32(88.8))
+    n = np.floor(fma(x, F32(1.44269502), F32(0.5)))
+    n = np.minimum(np.maximum(n, F32(-127.0)), F32(127.0))
+    r = fma(-n, F32(0.693359375), x)
+    r = fma(-n, F32(-2.12194440e-4), r)
+    p = fma(r, F32(1.9875691500e-4), F32(1.3981999507e-3))
+    for c in (8.3334519073e-3, 4.1665795894e-2, 1.6666665459e-1, 0.5):
+        p = fma(p, r, F32(c))
+    y = add(fma(p, mul(r, r), r), F32(1.0))
+    return mul(y, ((n.astype(np.int32) + 127) << 23).view(F32))
+
+
+_LOG_P = ((7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1),
+          (-1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1),
+          (2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1))
+_LOG1P_DEN = (15.062909186, 83.047565967, 221.76239823, 309.09872225,
+              216.42788614, 60.118660497)
+_LOG1P_NUM = (4.5270000862e-5, 0.49854102823, 6.5787325942, 29.911919328,
+              60.949667980, 57.112963590, 20.039553499)
+
+
+@_both_branches
+def _log1p_compiled(e) -> np.ndarray:
+    """log1p(e) for e >= 0 as the loop fusions compute it: Cephes' rational
+    form below 0.41421357, else Cephes' log of 1 + e."""
+    e = np.asarray(e, F32)
+    bits = np.maximum(add(e, F32(1.0)), _TINY).view(np.int32)
+    mant = ((bits & 0x7FFFFF) | 0x3F000000).view(F32)  # in [0.5, 1)
+    low = mant < F32(0.707106769)
+    k = add(add(((bits >> 23) - 127).astype(F32), F32(1.0)),
+            np.where(low, F32(-1.0), F32(-0.0)))
+    x = add(add(mant, F32(-1.0)), np.where(low, mant, F32(0.0)))
+    z = mul(x, x)
+    x3 = mul(z, x)
+    y1, y2, y3 = (fma(fma(x, F32(a), F32(b)), x, F32(c)) for a, b, c in _LOG_P)
+    y = fma(fma(fma(y1, x3, y2), x3, y3), x3, mul(k, F32(-2.12194440e-4)))
+    log = fma(k, F32(0.693359375), add(add(x, -mul(z, F32(0.5))), y))
+    den = np.full_like(e, F32(1.0))
+    for c in _LOG1P_DEN:
+        den = fma(den, e, F32(c))
+    num = np.full_like(e, F32(_LOG1P_NUM[0]))
+    for c in _LOG1P_NUM[1:]:
+        num = fma(num, e, F32(c))
+    e2 = mul(e, e)
+    rational = add(e, fma(e2, F32(-0.5), mul(mul(e, e2), div(num, den))))
+    return np.where(np.abs(e) < F32(_LOG1P_RATIONAL), rational, log)
+
+
+def softplus_compiled(h) -> np.ndarray:
+    """softplus(h) = max(h, 0) + log1p(exp(-|h|)) as XLA's compiled code
+    computes it (the tail search; `softplus_folded` is the folded form)."""
+    h = np.asarray(h, F32)
+    return add(np.maximum(h, F32(0.0)),
+               _log1p_compiled(_exp_compiled(-np.abs(h))))
+
+
+def _fma32(a, b, c) -> np.ndarray:
+    """float32 a * b + c rounded once, without the flush to zero of `fma`,
+    which doubles the search's time: its products and sums stay far from the
+    subnormal range, except the Adam moments, which `factorized_tails`
+    flushes itself."""
+    return (np.multiply(a, b, dtype=F64) + c).astype(F32)
+
+
+def _tanh32(x) -> np.ndarray:
+    """`tanh` without the flush to zero, for the search's logits."""
+    clamp = F32(7.99881172180175781)
+    xc = np.minimum(np.maximum(x, -clamp), clamp)
+    x2 = xc * xc
+    num = np.full_like(x, F32(_TANH_NUM[0]))
+    for c in _TANH_NUM[1:]:
+        num = _fma32(x2, num, F32(c))
+    den = np.full_like(x, F32(_TANH_DEN[0]))
+    for c in _TANH_DEN[1:]:
+        den = _fma32(x2, den, F32(c))
+    return np.where(np.abs(x) < F32(0.0004), x, (xc * num) / den)
+
+
+def _tanh_grad(g, tanh_a, t) -> np.ndarray:
+    """Gradient through l = x + tanh(a) * tanh(x), given g = dL/dl and
+    t = tanh(x): g + p + t * p with p = tanh(a) * g * (1 - t); the last
+    product is fused into its add."""
+    p = (tanh_a * g) * (F32(1.0) - t)
+    return _fma32(t, p, g + p)
+
+
+def factorized_tails(params, targets, max_iters: int = 200_000,
+                     extra_counts: int = 24) -> np.ndarray:
+    """For each target, the x (C,) where the factorized density's CDF logits
+    reach it: the JAX package's `estimate_tails` search, step for step.
+
+    Adam (lr 1e-2, betas 0.9 and 0.99, eps 1e-8) on sum |logits(x) -
+    target| from x = 0, until every channel has overshot the optimum
+    `extra_counts` times after its first overshoot (`max_iters` is only a
+    runaway backstop). The searches run side by side; one whose rule has
+    fired stops, so each gives what a search of its own would.
+    params: {'H_k', 'a_k', 'b_k'} float32 numpy arrays, k = 0..3, with the
+    filters (1, 3, 3, 3, 1). Returns float32 (len(targets), C).
+    """
+    sp = [softplus_compiled(params[f"H_{k}"]) for k in range(4)]
+    ta = [tanh(params[f"a_{k}"])[..., 0] for k in range(4)]
+    b = [np.asarray(params[f"b_{k}"], F32)[..., 0] for k in range(4)]
+    c = b[0].shape[0]
+    sp0, sp3 = sp[0][..., 0], sp[3][:, 0, :]     # (C, 3) and (C, 3)
+    ta3, b3 = ta[3][:, 0], b[3][:, 0]
+    n = len(targets)
+    tails = np.zeros((n, c), F32)
+    m = np.zeros((n, c), F32)
+    v = np.ones((n, c), F32)
+    counts = np.zeros((n, c), np.int32)
+    target = np.asarray(targets, F32)[:, None]
+    live = np.arange(n)
+    for _ in range(max_iters):
+        live = live[counts[live].min(axis=1) < extra_counts]
+        if live.size == 0:
+            break
+        t, tg = tails[live], target[live]
+        # Forward: x_k the layer's input to tanh, l_k its output.
+        x1 = _fma32(sp0, t[..., None], b[0])
+        x1[..., 2] = sp0[:, 2] * t + b[0][:, 2]  # kept apart by the vectors
+        t1 = _tanh32(x1)
+        l1 = _fma32(ta[0], t1, x1)
+        x2 = _matvec(sp[1], l1) + b[1]
+        t2 = _tanh32(x2)
+        l2 = _fma32(ta[1], t2, x2)
+        x3 = _matvec(sp[2], l2) + b[2]
+        t3 = _tanh32(x3)
+        l3 = _fma32(ta[2], t3, x3)
+        x4 = _dot3(sp3, l3) + b3
+        t4 = _tanh32(x4)
+        logits = _fma32(ta3, t4, x4)
+        # Backward: the sign of |logits - target|, then each layer's
+        # tanh term and transposed product.
+        s = np.where(logits - tg >= 0, F32(1.0), F32(-1.0))
+        q = (F32(1.0) - t4) * (ta3 * s)
+        g4 = _fma32(t4, q, s + q)
+        gx3 = _tanh_grad(g4[..., None] * sp3, ta[2], t3)
+        gx2 = _tanh_grad(_matvec_t(gx3, sp[2]), ta[1], t2)
+        gx1 = _tanh_grad(_matvec_t(gx2, sp[1]), ta[0], t1)
+        grad = _dot3(gx1, sp0)
+        # Adam.
+        m_new = _ftz(_fma32(m[live], F32(0.9), grad * F32(1.0 - 0.9)))
+        v_new = _ftz(_fma32(v[live], F32(0.99),
+                            _ftz(grad * grad) * F32(1.0 - 0.99)))
+        t = t - (m_new * F32(1e-2)) / (np.sqrt(v_new) + F32(1e-8))
+        cnt = counts[live]
+        counts[live] = np.where((cnt > 0) | (grad * t > 0), cnt + 1, cnt)
+        tails[live], m[live], v[live] = t, m_new, v_new
+    return tails
+
+
+def _matvec(h, l) -> np.ndarray:
+    """(C, o, f) x (..., C, f) -> (..., C, o): per output, the products over
+    f chained in fused multiply-adds, in order (XLA's row-major gemv)."""
+    acc = h[..., 0] * l[..., None, 0]
+    for j in range(1, h.shape[2]):
+        acc = _fma32(h[..., j], l[..., None, j], acc)
+    return acc + F32(0.0)
+
+
+def _matvec_t(g, h) -> np.ndarray:
+    """(..., C, o) x (C, o, f) -> (..., C, f), the transposed product: over
+    o, in order, with fused multiply-adds (XLA's column-major gemv)."""
+    acc = g[..., 0:1] * h[:, 0, :]
+    for o in range(1, h.shape[1]):
+        acc = _fma32(h[:, o, :], g[..., o:o + 1], acc)
+    return acc
+
+
+def _dot3(a, b) -> np.ndarray:
+    """sum over the last axis of a * b, in order, each product rounded
+    before its add (XLA's gemv of one output row)."""
+    acc = a[..., 0] * b[..., 0]
+    for j in range(1, a.shape[-1]):
+        acc = a[..., j] * b[..., j] + acc
+    return acc

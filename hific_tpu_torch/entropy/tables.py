@@ -1,11 +1,9 @@
 """Probability tables for the entropy coders; counterpart of the JAX
 package's `entropy/tables.py`.
 
-- `estimate_tails`: Adam search, vectorized over channels, for the x where a
-  monotone CDF reaches a target, with the JAX package's update, stopping
-  rule and iteration cap.
 - `build_factorized_tables`: per-channel quantized CDFs of the learned
-  hyperlatent density.
+  hyperlatent density, between tails found by `host_math.factorized_tails`
+  (the JAX package's `estimate_tails` search in its float32 arithmetic).
 - `build_scale_tables`: one CDF row per entry of the log-spaced scale table
   of the conditional latent prior.
 """
@@ -13,7 +11,6 @@ package's `entropy/tables.py`.
 from typing import Callable, NamedTuple
 
 import numpy as np
-import torch
 
 from hific_tpu_torch.entropy.coding import build_inverse_table
 from hific_tpu_torch.models.density import PRECISION_P, TAIL_MASS
@@ -38,51 +35,6 @@ def prior_scale_table(scales_min=SCALES_MIN, scales_max=SCALES_MAX,
                       levels=SCALES_LEVELS) -> np.ndarray:
     """Log-spaced static scale table."""
     return np.exp(np.linspace(np.log(scales_min), np.log(scales_max), levels))
-
-
-def estimate_tails(cdf_fn: Callable, targets, shape,
-                   max_iters: int = 200_000, extra_counts: int = 24,
-                   device="cpu"):
-    """For each target, find x of `shape` with cdf_fn(x) == target by Adam
-    on sum |cdf_fn(x) - target|; returns one tensor per target.
-
-    Each search follows the JAX package's `estimate_tails` step for step:
-    it runs until every lane has overshot the optimum `extra_counts` times
-    after its first overshoot (`max_iters` is only a runaway backstop). The
-    searches run side by side on a trailing axis, and a search whose rule
-    has fired is frozen, so each gives what a search of its own would,
-    while the Python loop runs max(steps) times instead of sum(steps). One
-    host read per step checks the rule. cdf_fn must be elementwise along
-    the last axis, monotone and differentiable in torch.
-    """
-    lr, eps, beta_1, beta_2 = 1e-2, 1e-8, 0.9, 0.99
-    n, each = len(targets), tuple(shape)
-    shape = each[:-1] + (each[-1] * n,)
-    target = torch.tensor(targets, dtype=torch.float32,
-                          device=device).repeat_interleave(each[-1])
-    group = torch.arange(n, device=device).repeat_interleave(each[-1])
-    tails = torch.zeros(shape, dtype=torch.float32, device=device)
-    m = torch.zeros_like(tails)
-    v = torch.ones_like(tails)
-    counts = torch.zeros(shape, dtype=torch.int32, device=device)
-    with torch.inference_mode(False), torch.enable_grad():
-        for _ in range(max_iters):
-            least = counts.reshape(-1, n, each[-1]).amin(dim=(0, 2))
-            done = least >= extra_counts
-            if bool(done.all()):
-                break
-            live = ~done[group]
-            t = tails.detach().requires_grad_(True)
-            loss = torch.sum(torch.abs(cdf_fn(t) - target))
-            (grad,) = torch.autograd.grad(loss, t)
-            m = torch.where(live, beta_1 * m + (1.0 - beta_1) * grad, m)
-            v = torch.where(live, beta_2 * v + (1.0 - beta_2) * grad * grad, v)
-            tails = torch.where(live, tails - lr * m / (torch.sqrt(v) + eps),
-                                tails)
-            counts = torch.where(live & ((counts > 0) | (grad * tails > 0)),
-                                 counts + 1, counts)
-    return [t.reshape(each)
-            for t in tails.reshape(-1, n, each[-1]).unbind(1)]
 
 
 def _quantize_rows(pmf: np.ndarray, pmf_length: np.ndarray,

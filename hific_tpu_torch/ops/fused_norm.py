@@ -29,15 +29,15 @@ SOURCE = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc",
                       "channel_norm.cu")
 MAX_CHANNELS = 1024
 ACTS = ("none", "relu")
-ROWS_PER_BLOCK = 8     # kRowsPerBlock in channel_norm.cu
-BWD_MAX_BLOCKS = 528   # kBwdMaxBlocks in channel_norm.cu
+BWD_MAX_BLOCKS = 264   # kBwdMaxBlocks in channel_norm.cu
 
 _FWD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int,
                                          ctypes.c_float, ctypes.c_int,
                                          ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int64, ctypes.c_int,
                                          ctypes.c_float, ctypes.c_int,
-                                         ctypes.c_int, ctypes.c_void_p]
+                                         ctypes.c_int, ctypes.c_int,
+                                         ctypes.c_void_p]
 
 
 class ChannelNormLibrary:
@@ -105,14 +105,20 @@ class ChannelNormBackwardKernel:
         self.launches = 0
         self.g_copies = 0
 
-    def launch(self, x, g, gamma, beta, dx, eps: float, relu: bool):
-        """Writes dx; returns the (2, C) fp32 tensor (dgamma, dbeta)."""
+    def launch(self, x, g, gamma, beta, dx, eps: float, relu: bool,
+               stages: int = 3):
+        """Writes dx; returns the (2, C) fp32 tensor (dgamma, dbeta).
+
+        The backward is two kernels: the row kernel (dx, and one row of
+        column sums per block) and the column sum of those rows. `stages`
+        1 or 2 launches only the first or the second, to time each; the
+        second alone then sums whatever its scratch holds."""
         lib = LIBRARY.load()
         fn = (lib.hific_channel_norm_bwd_f32 if x.dtype == torch.float32
               else lib.hific_channel_norm_bwd_bf16)
         n, c, h, w = x.shape
         m = n * h * w
-        blocks = max(1, min(-(-m // ROWS_PER_BLOCK), BWD_MAX_BLOCKS))
+        blocks = max(1, min(m, BWD_MAX_BLOCKS))  # the kernel may take fewer
         partial = torch.empty((blocks, 2, c), dtype=torch.float32,
                               device=x.device)
         dgb = torch.empty((2, c), dtype=torch.float32, device=x.device)
@@ -120,7 +126,8 @@ class ChannelNormBackwardKernel:
             stream = torch.cuda.current_stream(x.device).cuda_stream
             err = fn(x.data_ptr(), g.data_ptr(), gamma.data_ptr(),
                      beta.data_ptr(), dx.data_ptr(), partial.data_ptr(),
-                     dgb.data_ptr(), m, c, eps, int(relu), blocks, stream)
+                     dgb.data_ptr(), m, c, eps, int(relu), blocks, stages,
+                     stream)
         _raise_on(err, "channel_norm backward", x)
         self.launches += 1
         return dgb

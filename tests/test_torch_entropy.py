@@ -25,12 +25,11 @@ from hific_tpu.entropy.entropy_models import (
 from hific_tpu.models.density import HyperlatentDensity as JaxDensity
 from hific_tpu.models.hific import HiFiC as JaxHiFiC
 from hific_tpu.ops.maths import pmf_to_quantized_cdf as jax_pmf_to_cdf
-from hific_tpu_torch.entropy import coding, container
+from hific_tpu_torch.entropy import coding, container, host_math
 from hific_tpu_torch.entropy.entropy_models import (
     ConditionalEntropyModel,
     FactorizedEntropyModel,
 )
-from hific_tpu_torch.entropy.tables import estimate_tails
 from hific_tpu_torch.models.density import HyperlatentDensity
 from hific_tpu_torch.ops.maths import pmf_to_quantized_cdf
 
@@ -197,31 +196,38 @@ def test_pmf_to_quantized_cdf_matches_jax():
                                       jax_pmf_to_cdf(pmf, 16))
 
 
+def _flagship_density_params():
+    prefix = "p:hyperprior/hyperlatent_density/"
+    with np.load(ARTIFACT) as z:
+        return {n[len(prefix):]: z[n].astype(np.float32)
+                for n in z.files if n.startswith(prefix)}
+
+
 def test_estimate_tails_finds_quantiles():
-    """Two searches side by side, each to its own quantile."""
-    cdf = lambda x: 0.5 * (1.0 + torch.erf(x / np.sqrt(2.0)))
-    qs = (0.42, 0.93)
-    for q, tails in zip(qs, estimate_tails(cdf, list(qs), (10,))):
-        assert tails.shape == (10,)
-        np.testing.assert_allclose(tails.numpy(), scipy.stats.norm.ppf(q),
-                                   atol=2e-2)
+    """Two searches side by side, each to its own quantile of the flagship
+    density: the CDF logits cross each target within 0.05 of its tail."""
+    params = _flagship_density_params()
+    qs = np.array([0.42, 0.93])
+    targets = np.log(qs / (1.0 - qs))
+    tails = host_math.factorized_tails(params, list(targets))
+    assert tails.shape == (2, 320)
+    for target, t in zip(targets, tails):
+        below, above = (host_math.factorized_cdf_logits(
+            params, (t + d).reshape(320, 1, 1).astype(np.float32))
+            .reshape(-1) for d in (-0.05, 0.05))
+        assert np.all(below < target) and np.all(above > target)
 
 
 def test_side_by_side_searches_equal_separate_ones():
-    """Freezing a finished search leaves each result as a search of its own
-    gives it, on the flagship density (searches of 1.7e3 to 8e3 steps)."""
-    prefix = "p:hyperprior/hyperlatent_density/"
-    with np.load(ARTIFACT) as z:
-        params = {n[len(prefix):]: torch.from_numpy(z[n].astype(np.float32))
-                  for n in z.files if n.startswith(prefix)}
-    density = HyperlatentDensity(320)
-    density.load_state_dict(params)
-    density.requires_grad_(False)
+    """Stopping a finished search leaves each result as a search of its own
+    gives it, on the flagship density (searches of 135 to 1.2e3 steps)."""
+    params = _flagship_density_params()
     targets = [-6.0, 0.0]
-    together = estimate_tails(density.cdf_logits, targets, (320, 1, 1))
+    together = host_math.factorized_tails(params, targets)
     for target, got in zip(targets, together):
-        (alone,) = estimate_tails(density.cdf_logits, [target], (320, 1, 1))
-        torch.testing.assert_close(got, alone, rtol=0, atol=0)
+        (alone,) = host_math.factorized_tails(params, [target])
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      alone.view(np.uint32))
 
 
 def test_scale_indices_match_jax_and_synth_stats_rule():

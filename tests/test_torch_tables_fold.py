@@ -9,9 +9,20 @@ tables of such densities with both packages' `build_factorized_tables`,
 the JAX side's likelihood jitted over the parameters as its `Codec` does,
 and require them byte-identical over row lengths 3..300: each length where
 the rule changes, and lengths between. Densities have 16, 64 or 128
-channels; at 320 channels and 256 samples or more XLA splits the fusion
-across threads differently (ROADMAP.md, section 3).
+channels in-process.
+
+At 320 channels and 256 samples or more, the JAX package's own result
+depends on the host: XLA partitions that fusion by the number of cores the
+process may use, and each part hoists its own first iteration. Given one
+core, XLA computes it as one partition, which is the arithmetic the port
+follows on every host. The 320-channel tests therefore run the JAX side in
+a subprocess pinned to one core (ROADMAP.md, section 3), and hold the
+port's own result equal under two CPU affinities.
 """
+
+import os
+import subprocess
+import sys
 
 import jax
 import numpy as np
@@ -103,3 +114,126 @@ def test_rule_read_from_the_host():
         assert [host_math.xla_unfused_samples(m)
                 for m in (2, 3, 27, 28, 31, 32, 47, 48, 63, 64, 255, 256)] \
             == [0, 1, 1, 8, 8, 32, 32, 16, 16, 32, 32, 0]
+
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+H0_320_LENGTHS = (256, 264, 300)
+SUBPROCESS_TIMEOUT_S = 300
+
+# Reads the densities, samples and tails of each row length from argv[1];
+# writes the JAX package's pmf and table for each to argv[2].
+_JAX_SIDE = """
+import sys
+import numpy as np
+sys.path.insert(0, sys.argv[3])
+import jax
+jax.config.update("jax_platforms", "cpu")
+from hific_tpu.entropy.tables import build_factorized_tables
+from hific_tpu.models.density import HyperlatentDensity
+inputs, out = np.load(sys.argv[1]), {}
+for m in inputs["lengths"]:
+    params = {k[len(f"{m}/p/"):]: inputs[k] for k in inputs.files
+              if k.startswith(f"{m}/p/")}
+    density = HyperlatentDensity(n_channels=320)
+    lik = jax.jit(lambda t: density.apply(
+        {"params": params}, t, method=HyperlatentDensity.likelihood_collapsed))
+    out[f"{m}/pmf"] = np.asarray(lik(inputs[f"{m}/x"]))
+    tables = build_factorized_tables(lik, inputs[f"{m}/lower"],
+                                     inputs[f"{m}/upper"])
+    for name in ("cdf", "cdf_length", "cdf_offset", "inverse"):
+        out[f"{m}/{name}"] = getattr(tables, name)
+np.savez(sys.argv[2], **out)
+"""
+
+# Prints a digest of the port's pmf for the densities of argv[1].
+_PORT_SIDE = """
+import hashlib, sys
+import numpy as np
+sys.path.insert(0, sys.argv[2])
+from hific_tpu_torch.entropy import host_math
+inputs, digest = np.load(sys.argv[1]), hashlib.sha256()
+for m in inputs["lengths"]:
+    params = {k[len(f"{m}/p/"):]: inputs[k] for k in inputs.files
+              if k.startswith(f"{m}/p/")}
+    digest.update(host_math.factorized_likelihood(
+        params, inputs[f"{m}/x"], 1e-9).tobytes())
+print(len(__import__("os").sched_getaffinity(0)), digest.hexdigest())
+"""
+
+
+def _h0_320_case(m: int):
+    params = _uniform_h0_density(320, seed=m)
+    x = np.random.RandomState(m).uniform(-8, 8, (320, 1, m)).astype(
+        np.float32)
+    lower, upper = _tails(320, m, seed=m)
+    return params, x, lower, upper
+
+
+def _run_pinned(code: str, args, cores):
+    """Runs `code` in a new interpreter that first sets its CPU affinity to
+    `cores`, before it imports anything, so XLA sizes its thread pool from
+    them."""
+    pin = ("import os, sys\n"
+           "os.sched_setaffinity(0, {int(c) for c in sys.argv.pop(1)"
+           ".split(',')})\n")
+    proc = subprocess.run(
+        [sys.executable, "-c", pin + code, ",".join(map(str, sorted(cores))),
+         *args], capture_output=True, text=True,
+        timeout=SUBPROCESS_TIMEOUT_S, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return proc.stdout
+
+
+@pytest.fixture(scope="module")
+def h0_320_inputs(tmp_path_factory):
+    path = tmp_path_factory.mktemp("h0_320") / "inputs.npz"
+    arrays = {"lengths": np.array(H0_320_LENGTHS)}
+    for m in H0_320_LENGTHS:
+        params, x, lower, upper = _h0_320_case(m)
+        arrays.update({f"{m}/p/{k}": v for k, v in params.items()})
+        arrays.update({f"{m}/x": x, f"{m}/lower": lower, f"{m}/upper": upper})
+    np.savez(path, **arrays)
+    return path
+
+
+@pytest.fixture(scope="module")
+def jax_on_one_core(h0_320_inputs):
+    """The JAX package's pmf and tables of the 320-channel cases, computed
+    in a subprocess pinned to the first core this process may use."""
+    out = h0_320_inputs.parent / "jax_one_core.npz"
+    core = min(os.sched_getaffinity(0))
+    _run_pinned(_JAX_SIDE, [str(h0_320_inputs), str(out), ROOT], {core})
+    with np.load(out) as z:
+        return dict(z)
+
+
+@pytest.mark.parametrize("m", H0_320_LENGTHS)
+def test_uniform_h0_320_matches_single_core_jax(m, jax_on_one_core):
+    """The pmf on non-integer samples, every float32 bit, and the table built
+    from it, byte for byte, against the JAX package run on one core."""
+    params, x, lower, upper = _h0_320_case(m)
+    got = host_math.factorized_likelihood(params, x, 1e-9)
+    want = jax_on_one_core[f"{m}/pmf"]
+    diff = np.argwhere(got.view(np.uint32) != want.view(np.uint32))
+    assert diff.size == 0, (f"{len(diff)} pmf values differ, first at "
+                            f"{tuple(diff[0])}")
+    tables = build_factorized_tables(
+        lambda t: host_math.factorized_likelihood(params, t, 1e-9),
+        lower, upper)
+    for name in TABLE_FIELDS:
+        np.testing.assert_array_equal(getattr(tables, name),
+                                      jax_on_one_core[f"{m}/{name}"],
+                                      err_msg=name)
+
+
+def test_port_pmf_independent_of_cpu_affinity(h0_320_inputs):
+    """The port's single-partition arithmetic does not read the host: its
+    pmf of the 320-channel cases has the same bytes on one core as on every
+    core this process may use."""
+    cores = os.sched_getaffinity(0)
+    one = _run_pinned(_PORT_SIDE, [str(h0_320_inputs), ROOT],
+                      {min(cores)}).split()
+    every = _run_pinned(_PORT_SIDE, [str(h0_320_inputs), ROOT],
+                        cores).split()
+    assert one[0] == "1" and every[0] == str(len(cores))
+    assert one[1] == every[1]
