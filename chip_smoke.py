@@ -2,15 +2,18 @@
 
     python3 chip_smoke.py [--weights artifacts/flagship_rd30k_f16.npz]
 
-Drives the port's two paths at the flagship's full width: the codec round
-trip (image -> .hfc -> image) through `hific_tpu_torch.codec.Codec`, and
+Drives the port's paths at the flagship's full width: the codec round trip
+(image -> .hfc -> image) through `hific_tpu_torch.codec.Codec`, the batch
+codec (`compress_many` / `decompress_many` on the device rANS coders), and
 compression training steps through the trainer `hific_tpu_torch.cli.train`;
 and holds every kernel of those paths against its plain PyTorch version:
 
 1. the card's name, power limit and count;
 2. builds the kernels from the sources in this checkout, all compilers
    started together (nvcc for `csrc/channel_norm.cu`, which holds the
-   ChannelNorm forward and backward kernels; g++ for the host rANS coder);
+   ChannelNorm forward and backward kernels, and for `csrc/rans_device.cu`,
+   which holds the rANS encode and decode kernels; g++ for the host rANS
+   coder);
 3. runs the ChannelNorm forward kernel at each of the round trip's 29
    (M, C, act) shapes against its plain version (fp32 within 1e-5; bf16
    within one ulp plus 1e-5 at two shapes), with its time, the plain
@@ -23,12 +26,24 @@ and holds every kernel of those paths against its plain PyTorch version:
    with the same timings, each kernel also timed alone;
 5. loads the flagship weights (seeded random weights of the same
    configuration where the artifact is absent) and builds the codec and
-   its tables;
+   its tables; then runs rans_encode and rans_decode against their plain
+   versions, bit for bit, on seeded symbol planes at the path's shapes (y
+   of 1024x1024 and 768x512 images, z of a 1024x1024 one; escape rates 0,
+   0.08 and 0.3 and a multi-nibble payload), streams equal to the host
+   coder's, with the kernels', plain versions' and host coder's times and
+   the bound;
 6. compress_file -> .hfc -> decompress_file of a seeded smooth 768x512
    image: decoded symbols equal the encoded ones, the forward kernel ran
-   exactly once per ChannelNorm (29 launches), and the card's
-   encoder/generator agree with the plain CPU path on a 64x64 crop (within
-   1e-3);
+   exactly once per ChannelNorm (29 launches) and the decode kernel once,
+   and the card's encoder/generator agree with the plain CPU path on a
+   64x64 crop (within 1e-3); then, at bench.py's operating point (four
+   seeded 1024x1024 images, the encoder's output scaled into 0.20-0.45
+   bpp), compress_many and decompress_many: no encode past the default
+   caps, two encode and one decode launch per image, `.hfc` bytes equal to the host
+   coder's and images equal to the host decoder's, and the serial,
+   pipelined and device-resident times; and the count of coding indices
+   where the card's synth_stats differs from the CPU's on one image's
+   hyperlatents (reported, not gated);
 7. one tiny-config training step on the card against the same step on the
    CPU's plain path (same weights, same noise): loss within 1e-4, every
    gradient within 1e-3 of its leaf's largest;
@@ -365,6 +380,25 @@ def timed(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+def profiled(fn):
+    """One call of fn under torch.profiler: (wall ms, the device's kernels
+    by self time, longest first, and their sum in ms)."""
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        _, wall_ms = timed(fn)
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    return wall_ms, rows, sum(e.self_device_time_total for e in rows) / 1e3
+
+
+def print_top(rows, n: int) -> None:
+    for e in rows[:n]:
+        print(f"    {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} "
+              f"{e.key[:90]}")
+
+
 def warm_round_trip(codec, x, card: str) -> None:
     """Steady-state legs of the round trip, their split between the device
     transforms and the host coder, and the device's kernels from
@@ -383,24 +417,15 @@ def warm_round_trip(codec, x, card: str) -> None:
             f"{enc_ms - sym_ms:.1f} ms); decompress_file {dec_ms:.1f} ms "
             f"(rANS + synth_stats {dsym_ms:.1f} ms, generator + image fetch "
             f"{dec_ms - dsym_ms:.1f} ms) ({card})")
-        activities = [torch.profiler.ProfilerActivity.CPU,
-                      torch.profiler.ProfilerActivity.CUDA]
         def round_trip():
             codec.compress_file(x, path)
             return codec.decompress_file(path, as_uint8=True)
 
-        with torch.profiler.profile(activities=activities) as prof:
-            _, wall_ms = timed(round_trip)
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    rows.sort(key=lambda e: -e.self_device_time_total)
-    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+        wall_ms, rows, busy_ms = profiled(round_trip)
     log(f"profiled round trip: wall {wall_ms:.1f} ms, device busy "
         f"{busy_ms:.1f} ms ({busy_ms / wall_ms:.0%}); top kernels by device "
         f"time:")
-    for e in rows[:10]:
-        print(f"    {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} "
-              f"{e.key[:90]}")
+    print_top(rows, 10)
 
 
 
@@ -527,11 +552,8 @@ def train_flagship(card: str, n_norms: int):
         # One more step under the profiler (not counted above).
         step_fn = make_train_step_g(state.model.config, train_cli.make_lpips_fn(
             args, next(state.model.parameters()).device))
-        activities = [torch.profiler.ProfilerActivity.CPU,
-                      torch.profiler.ProfilerActivity.CUDA]
         batch = batches[-1][0]
-        with torch.profiler.profile(activities=activities) as prof:
-            _, step_ms = timed(lambda: step_fn(state, batch))
+        step_ms, rows, busy_ms = profiled(lambda: step_fn(state, batch))
 
     per_step = []
     prev = (0, 0, 0)
@@ -554,19 +576,366 @@ def train_flagship(card: str, n_norms: int):
         f"(mean of steps 2-{TRAIN_STEPS}, host clock after synchronize; "
         f"{', '.join(f'{1e3 * t:.1f}' for t in times)}); peak device memory "
         f"{peak:.1f} GiB ({card})")
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    rows.sort(key=lambda e: -e.self_device_time_total)
-    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
     norm_ms = sum(e.self_device_time_total for e in rows
                   if "channel_norm" in e.key) / 1e3
     log(f"profiled step: wall {step_ms:.1f} ms, device busy {busy_ms:.1f} ms "
         f"({busy_ms / step_ms:.0%}); ChannelNorm kernels {norm_ms:.2f} ms; "
         f"top kernels by device time:")
-    for e in rows[:12]:
-        print(f"    {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} "
-              f"{e.key[:90]}")
+    print_top(rows, 12)
     return fwd, bwd, {"warm_ms": warm_ms, "copies_per_step": per_step[-1][2]}
+
+
+def event_ms(fn, reps: int) -> float:
+    """Median device time of `reps` calls of fn, each between two CUDA
+    events (a serial kernel's time varies with its data, so each call is
+    timed alone)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def host_ms(fn, reps: int) -> float:
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def rans_cases(codec, rng):
+    """Seeded symbol planes at the device coders' main-path shapes: y of a
+    1024x1024 image (P = 4096), y of a 768x512 one (P = 1536), both 220
+    lanes against the scale tables, and z of a 1024x1024 image (P = 256,
+    320 lanes) against the model's factorized tables; escape rates 0, 0.08
+    and 0.3, and a multi-nibble payload. Yields (label, kind, sym, idx)."""
+    y_t, z_t = codec.conditional.tables, codec.factorized.tables
+    shapes = [("y 1024x1024", "y", 4096, (0.0, 0.08)),
+              ("y 768x512", "y", 1536, (0.0, 0.08, 0.3, "multi-nibble")),
+              ("z 1024x1024", "z", 256, (0.0, 0.08, 0.3))]
+    for label, kind, p, rates in shapes:
+        tables = y_t if kind == "y" else z_t
+        lanes = 220 if kind == "y" else tables.cdf.shape[0]
+        for rate in rates:
+            if kind == "y":
+                idx = rng.randint(0, 40, (p, lanes))
+                sym = np.round(rng.randn(p, lanes)
+                               * codec.conditional.scale_table[idx])
+            else:
+                idx = np.broadcast_to(np.arange(lanes), (p, lanes))
+                sym = np.round(rng.randn(p, lanes) * 1.5)
+            lo = tables.cdf_offset[idx]
+            hi = lo + tables.cdf_length[idx] - 3   # the last tracked value
+            sym = np.clip(sym, lo, hi)
+            if rate == "multi-nibble":
+                for v in (30_000, -30_000, 999_999, -999_999):
+                    sym[rng.randint(p), rng.randint(lanes)] = v
+            elif rate:
+                esc = rng.rand(p, lanes) < rate
+                far = rng.randint(1, 300, (p, lanes))
+                sym = np.where(esc & (rng.rand(p, lanes) < 0.5), lo - far, sym)
+                sym = np.where(esc & (sym >= lo), hi + far, sym)
+            yield (f"{label} escapes {rate}", kind,
+                   np.ascontiguousarray(sym, np.int32),
+                   np.ascontiguousarray(idx, np.int32))
+
+
+def check_rans_kernels(codec, card: str):
+    """rans_encode and rans_decode against their plain versions on the card,
+    bit for bit, at each case of `rans_cases`: every buffer of the encoder
+    equal, its stream equal to the host coder's, and the host coder's stream
+    decoded to the symbols by both. Times (escape rate 0): the kernel's ms
+    (CUDA events, median of 20), the plain version's (median of 3), the
+    native host coder's for the same stream (median of 5) and the bound.
+    Returns ({(kernel, shape label): timings}, {kernel: max abs error of
+    any output word or symbol})."""
+    from hific_tpu_torch.entropy import coding, native
+    from hific_tpu_torch.entropy.device_decode import (
+        decode_scan, decode_scan_reference, words_tensor)
+    from hific_tpu_torch.entropy.device_encode import (
+        assemble_stream, encode_scan, encode_scan_reference)
+
+    enc_tables = dict(zip("yz", codec._enc_tables))
+    dec_tables = codec._dec_tables
+    host_tables = {"y": codec.conditional.tables, "z": codec.factorized.tables}
+    timed, max_err = {}, {"rans_encode": 0, "rans_decode": 0}
+    for label, kind, sym, idx in rans_cases(codec, np.random.RandomState(SEED)):
+        p, lanes = sym.shape
+        t = host_tables[kind]
+        sym_d = torch.from_numpy(sym).cuda()
+        idx_d = torch.from_numpy(idx).cuda()
+        caps = dict(spill_cap=p * lanes + 4096, lens_cap=64 * p + 64)
+        got = encode_scan(sym_d, idx_d, enc_tables[kind], **caps)
+        want = encode_scan_reference(sym_d, idx_d, enc_tables[kind], **caps)
+        err = max(int((a.long() - b.long()).abs().max())
+                  for a, b in zip(got, want))
+        max_err["rans_encode"] = max(max_err["rans_encode"], err)
+        if err:
+            raise AssertionError(f"rans_encode {label}: differs from its "
+                                 f"plain version by {err}")
+        heads, spill, lens, counts = (a.cpu().numpy().view(np.uint32)
+                                      for a in got)
+        stream = assemble_stream(heads, spill, lens, int(counts[0]),
+                                 int(counts[1]))
+        host = native.encode_lanes(sym, idx, t.cdf, t.cdf_length,
+                                   t.cdf_offset, t.precision)
+        if not np.array_equal(stream, host):
+            raise AssertionError(f"rans_encode {label}: stream differs from "
+                                 f"the host coder's")
+        decoded = None
+        if kind == "y":
+            words = words_tensor(host, "cuda")
+            decoded, bad = decode_scan(words, idx_d, dec_tables)
+            plain = decode_scan_reference(words, idx_d, dec_tables)
+            err = int((decoded.long() - plain.long()).abs().max())
+            max_err["rans_decode"] = max(max_err["rans_decode"], err)
+            if not (int(bad) == 0 and err == 0
+                    and np.array_equal(decoded.cpu().numpy(), sym)):
+                raise AssertionError(f"rans_decode {label}: differs from its "
+                                     f"plain version or the symbols")
+        else:  # z has no device decoder on the path: the host's, for a check
+            z_dec = native.decode_lanes(host, idx, t.cdf, t.cdf_length,
+                                        t.cdf_offset, t.inverse, t.precision)
+            if not np.array_equal(z_dec, sym):
+                raise AssertionError(f"host decode {label} differs")
+        log(f"rans {label}: P={p} L={lanes}, {len(host)} words "
+            f"({32 * len(host) / sym.size:.3f} bits/symbol), "
+            f"{int(counts[1])} push events: kernels equal their plain "
+            f"versions and the host coder")
+        if not label.endswith("escapes 0.0"):
+            continue
+        shape = label.split(" escapes")[0]
+        n = p * lanes
+        k_ms = event_ms(lambda: encode_scan(sym_d, idx_d, enc_tables[kind],
+                                            **caps), 20)
+        p_ms = event_ms(lambda: encode_scan_reference(
+            sym_d, idx_d, enc_tables[kind], **caps), 3)
+        h_ms = host_ms(lambda: native.encode_lanes(
+            sym, idx, t.cdf, t.cdf_length, t.cdf_offset, t.precision), 5)
+        # Bytes, each read once: the symbols and indices; of the CDF rows
+        # the two words a symbol gathers or the whole table, whichever is
+        # less; the rows' lengths and offsets whole. Written: the heads,
+        # the spill words and the event counts.
+        rows, max_len = t.cdf.shape
+        e_bytes = (n * 8 + min(n * 8, rows * max_len * 4) + rows * 8
+                   + (2 * lanes + int(counts[0]) + int(counts[1]) + 3) * 4)
+        timed[("rans_encode", shape)] = dict(
+            p=p, lanes=lanes, ms=k_ms, plain_ms=p_ms, host_coder_ms=h_ms,
+            bound_ms=e_bytes / HBM_BYTES_PER_S * 1e3)
+        if kind == "y":
+            k_ms = event_ms(lambda: decode_scan(words, idx_d, dec_tables), 20)
+            p_ms = event_ms(lambda: decode_scan_reference(words, idx_d,
+                                                          dec_tables), 3)
+            h_ms = host_ms(lambda: native.decode_lanes(
+                host, idx, t.cdf, t.cdf_length, t.cdf_offset, t.inverse,
+                t.precision), 5)
+            # Bytes, each read once: the stream and the indices; of the
+            # (start|freq, value) table the pair a symbol gathers or the
+            # whole table, whichever is less; the rows' overflow codes and
+            # offsets whole. Written: the symbols.
+            d_bytes = (len(host) * 4 + n * 4
+                       + min(n * 8, dec_tables.t_pair.numel() * 4)
+                       + rows * 8 + n * 4)
+            timed[("rans_decode", shape)] = dict(
+                p=p, lanes=lanes, ms=k_ms, plain_ms=p_ms, host_coder_ms=h_ms,
+                bound_ms=d_bytes / HBM_BYTES_PER_S * 1e3)
+    for (name, shape), r in timed.items():
+        print(f"    {name} {shape} (P={r['p']}, L={r['lanes']}): kernel "
+              f"{r['ms']:.3f} ms, plain {r['plain_ms']:.1f} ms, host coder "
+              f"{r['host_coder_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+              f"(bytes; a serial scan sits far above it) ({card})",
+              flush=True)
+    return timed, max_err
+
+
+def bench_image(seed: int, h: int = 1024, w: int = 1024) -> np.ndarray:
+    """(1, h, w, 3) uint8 as bench.py makes them: seeded low-resolution
+    noise upsampled bicubically (torch here), plus 5% fine noise,
+    stretched to [0, 255]."""
+    rng = np.random.RandomState(seed)
+    low = torch.from_numpy(rng.rand(h // 32, w // 32, 3).astype(np.float32))
+    img = torch.nn.functional.interpolate(
+        low.permute(2, 0, 1)[None], size=(h, w), mode="bicubic",
+        align_corners=False)[0].permute(1, 2, 0).numpy()
+    img = img + 0.05 * rng.rand(h, w, 3).astype(np.float32)
+    img = (img - img.min()) / (img.max() - img.min())
+    return np.clip(img * 255.0 + 0.5, 0, 255).astype(np.uint8)[None]
+
+
+def calibrate(codec, x, band=(0.20, 0.45), probes: int = 12):
+    """Scale the encoder's output conv (y -> alpha y) by log-space
+    bisection until the host coder's bpp lies in `band`, as bench.py
+    does; raises if it does not get there."""
+    conv = codec.model.encoder.conv_out
+    base = (conv.weight.detach().clone(), conv.bias.detach().clone())
+    lo, hi = 1e-3, 2.0
+    for _ in range(probes):
+        alpha = float(np.sqrt(lo * hi))
+        with torch.no_grad():
+            conv.weight.copy_(base[0] * alpha)
+            conv.bias.copy_(base[1] * alpha)
+        bpp = codec.compress(x).total_bpp
+        log(f"calibrate: alpha {alpha:.5f} -> {bpp:.3f} bpp")
+        if band[0] <= bpp <= band[1]:
+            return alpha, bpp
+        lo, hi = (lo, alpha) if bpp > band[1] else (alpha, hi)
+    raise AssertionError(f"calibration did not reach {band} bpp")
+
+
+def batch_path(codec, card: str):
+    """compress_many / decompress_many on four seeded 1024x1024 images at
+    bench.py's operating point, through the device coders. Returns the
+    launch counts of each path and the summary."""
+    from hific_tpu_torch import codec as codec_module
+    from hific_tpu_torch.entropy import device_rans
+    from hific_tpu_torch.entropy.container import (load_compressed,
+                                                   save_compressed)
+
+    kernels = (device_rans.ENCODE_KERNEL, device_rans.DECODE_KERNEL)
+    x0 = bench_image(0)
+    alpha, bpp = calibrate(codec, x0)
+    imgs = [bench_image(s) for s in (1, 2, 3, 4)]
+    mp = imgs[0].shape[1] * imgs[0].shape[2] / 1e6
+
+    # The main path, counted: compress_many, then decompress_many to uint8.
+    relaunches = codec.device_relaunches
+    for k in kernels:
+        k.launches = 0
+    outs = codec.compress_many(imgs)
+    enc_launches = kernels[0].launches
+    kernels[1].launches = 0
+    recons = codec.decompress_many(outs, as_uint8=True)
+    dec_launches = kernels[1].launches
+    if codec.device_relaunches != relaunches:
+        raise AssertionError(f"{codec.device_relaunches - relaunches} of 4 "
+                             f"images overran the default caps")
+    if (enc_launches, dec_launches) != (8, 4):
+        raise AssertionError(f"{enc_launches} encode and {dec_launches} "
+                             f"decode launches for 4 images; expected 8 and 4")
+    with tempfile.TemporaryDirectory() as tmp:
+        def hfc(out, name):
+            path = os.path.join(tmp, name)
+            save_compressed(out, path)
+            with open(path, "rb") as f:
+                return path, f.read()
+
+        for i, (x, out, recon) in enumerate(zip(imgs, outs, recons)):
+            path, got = hfc(out, f"{i}.hfc")
+            if got != hfc(codec.compress(x), f"{i}_host.hfc")[1]:
+                raise AssertionError(f"image {i}: compress_many's .hfc "
+                                     f"differs from the host coder's")
+            host_recon = codec.decompress(load_compressed(path), as_uint8=True,
+                                          device_decode=False)
+            if not (recon.shape == x.shape
+                    and np.array_equal(recon, host_recon)):
+                raise AssertionError(f"image {i}: the device decoder's image "
+                                     f"differs from the host decoder's")
+        # An encode past its caps (8 spill words, 16 events) is launched
+        # again on the card at the demand it reported: the host's bytes.
+        default_caps = codec_module.default_caps
+        codec_module.default_caps = lambda p, lanes, bits_per_symbol=2: (8, 16)
+        try:
+            relaunches = codec.device_relaunches
+            forced = hfc(codec.compress(imgs[0], device_encode=True),
+                         "forced.hfc")[1]
+        finally:
+            codec_module.default_caps = default_caps
+        if (codec.device_relaunches - relaunches != 1
+                or forced != hfc(codec.compress(imgs[0]), "0_host.hfc")[1]):
+            raise AssertionError("an encode past its caps was not relaunched "
+                                 "on the card to the host coder's bytes")
+    bpps = [o.total_bpp for o in outs]
+    log(f"batch path: alpha {alpha:.5f} ({bpp:.3f} bpp on the probe image); "
+        f"4 images at {np.mean(bpps):.4f} bpp, none past the caps; 8 "
+        f"encode and 4 decode launches; .hfc bytes equal the host coder's, uint8 images "
+        f"the host decoder's; an encode past forced caps of 8 words and 16 "
+        f"events relaunched on the card to the same bytes")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "serial.hfc")
+        codec.compress_file(x0, path)
+        codec.decompress_file(path, as_uint8=True)
+        t_enc, t_dec = [], []
+        for _ in range(5):
+            _, e = timed(lambda: codec.compress_file(x0, path))
+            _, d = timed(lambda: codec.decompress_file(path, as_uint8=True))
+            t_enc.append(e)
+            t_dec.append(d)
+        enc, dec = float(np.median(t_enc)), float(np.median(t_dec))
+        paths = [os.path.join(tmp, f"b{i}.hfc") for i in range(4)]
+
+        def one_pass():
+            outs = codec.compress_many(imgs)
+            for o, p in zip(outs, paths):
+                save_compressed(o, p)
+            recons = codec.decompress_many([load_compressed(p)
+                                            for p in paths], as_uint8=True)
+            return [int(r[0, 0, 0, 0]) for r in recons]
+
+        one_pass()
+        pipelined = float(np.median([timed(one_pass)[1] for _ in range(7)]))
+    imgs_dev = [torch.from_numpy(x).cuda() for x in imgs]
+
+    def device_pass():
+        outs = codec.compress_many(imgs_dev)
+        recons = codec.decompress_many(outs, as_uint8=True, as_numpy=False)
+        return [int(r[0, 0, 0, 0]) for r in recons]
+
+    device_pass()
+    resident = float(np.median([timed(device_pass)[1] for _ in range(7)]))
+    wall_ms, rows, busy_ms = profiled(device_pass)
+    rans_ms = {k: sum(e.self_device_time_total for e in rows if k in e.key)
+               / 1e3 for k in ("rans_encode", "rans_decode")}
+    log(f"profiled device-resident pass (4 images): wall {wall_ms:.1f} ms, "
+        f"device busy {busy_ms:.1f} ms ({busy_ms / wall_ms:.0%}); "
+        f"rans_encode {rans_ms['rans_encode']:.2f} ms, rans_decode "
+        f"{rans_ms['rans_decode']:.2f} ms; top kernels by device time:")
+    print_top(rows, 8)
+    summary = {
+        "bpp": float(np.mean(bpps)),
+        "device_busy_share": busy_ms / wall_ms,
+        "serial_ms_per_image": enc + dec,
+        "serial_mp_s": mp / ((enc + dec) / 1e3),
+        "pipelined_ms_per_image": pipelined / 4,
+        "pipelined_mp_s": 4 * mp / (pipelined / 1e3),
+        "device_resident_mp_s": 4 * mp / (resident / 1e3),
+    }
+    log(f"batch path, 1024x1024 at {summary['bpp']:.4f} bpp: serial "
+        f"compress_file {enc:.1f} + decompress_file {dec:.1f} ms per image "
+        f"({summary['serial_mp_s']:.3f} MP/s); pipelined x4 "
+        f"{summary['pipelined_ms_per_image']:.1f} ms per image "
+        f"({summary['pipelined_mp_s']:.3f} MP/s); device-resident x4 "
+        f"{summary['device_resident_mp_s']:.3f} MP/s (host clock after "
+        f"synchronize, medians of 5 and 7; {card})")
+    return (enc_launches, dec_launches), outs[0], summary
+
+
+def indices_card_vs_cpu(codec, cpu, out):
+    """Scale indices where the card's synth_stats differs from the CPU's on
+    the same decoded hyperlatents (no limit: a measurement)."""
+    from hific_tpu_torch.runtime import fp32_numerics
+
+    if not cpu._tables_built:
+        cpu.build_tables()
+    z_np = cpu.factorized.decompress_symbols(
+        out.hyperlatents_encoded, out.batch_shape,
+        out.hyperlatent_spatial_shape)
+    idx = []
+    with torch.inference_mode(), fp32_numerics(deterministic=True):
+        for c in (codec, cpu):
+            z = torch.from_numpy(z_np).to(c.device, torch.int16).contiguous(
+                memory_format=torch.channels_last)
+            idx.append(c.model.synth_stats(z, c.scale_table)[2].cpu())
+    return int((idx[0] != idx[1]).sum()), idx[0].numel()
 
 
 def smooth_image(seed: int) -> np.ndarray:
@@ -602,6 +971,30 @@ def load_weights(path: str, seed: int):
     return config, state, f"seeded random weights (seed {seed}); {path} absent"
 
 
+RANS_REPLACES = {"rans_encode": "hific_tpu/entropy/device_encode.py:222",
+                 "rans_decode": "hific_tpu/entropy/device_decode.py:147"}
+
+
+def rans_entry(name: str, timed_rans, max_err: int, launches_by_path):
+    """The kernels line's entry of a rANS kernel: its times per 1024x1024
+    image (y, and for the encoder z too)."""
+    rows = {shape: r for (kernel, shape), r in timed_rans.items()
+            if kernel == name}
+    image = [r for shape, r in rows.items() if "1024x1024" in shape]
+    return {
+        "name": name, "route": "cuda",
+        "source": "hific_tpu_torch/csrc/rans_device.cu",
+        "replaces": RANS_REPLACES[name],
+        "launches": sum(launches_by_path.values()),
+        "launches_by_path": launches_by_path,
+        "max_abs_err": max_err,
+        **{key: sum(r[key] for r in image)
+           for key in ("ms", "plain_ms", "host_coder_ms", "bound_ms")},
+        "bound_by": "bytes", "library_ms": None,
+        "per_shape": rows,
+    }
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--weights", default=os.path.join(
@@ -621,7 +1014,7 @@ def main() -> int:
     log(f"device {kind} x{count}; torch {torch.__version__} CUDA "
         f"{torch.version.cuda}; python {sys.version.split()[0]}")
 
-    from hific_tpu_torch.entropy import native
+    from hific_tpu_torch.entropy import device_rans, native
     from hific_tpu_torch import native_build
     from hific_tpu_torch.codec import Codec
     from hific_tpu_torch.entropy.container import load_compressed
@@ -629,21 +1022,26 @@ def main() -> int:
     from hific_tpu_torch.ops import fused_norm
     from hific_tpu_torch.runtime import fp32_numerics
 
-    # Phase 2: build, both compilers at once.
+    # Phase 2: build, all compilers at once.
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
         norm_job = pool.submit(fused_norm.LIBRARY.load)
+        device_rans_job = pool.submit(device_rans.LIBRARY.load)
         rans_job = pool.submit(native_build.build_library, "rans",
                                [native.SOURCE],
                                ["g++"] + native_build.GXX_FLAGS)
         norm_job.result()
+        device_rans_job.result()
         rans = rans_job.result()
-    built = fused_norm.LIBRARY.built
-    log(f"built channel_norm.cu (forward + backward) in {built.seconds:.1f} "
-        f"s (plain nvcc) -> {os.path.relpath(built.path)}")
-    for line in built.log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print("  ptxas:", line.strip())
+    for name, built in (("channel_norm.cu (forward + backward)",
+                         fused_norm.LIBRARY.built),
+                        ("rans_device.cu (rans_encode, rans_decode)",
+                         device_rans.LIBRARY.built)):
+        log(f"built {name} in {built.seconds:.1f} s (plain nvcc) -> "
+            f"{os.path.relpath(built.path)}")
+        for line in built.log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print("  ptxas:", line.strip())
     log(f"built rans.cc in {rans.seconds:.1f} s (g++); builds took "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -679,6 +1077,9 @@ def main() -> int:
     codec.build_tables()
     log(f"tables built in {time.perf_counter() - t0:.1f} s")
 
+    # Phase 5b: the device rANS kernels against their plain versions.
+    rans_timed, rans_err = check_rans_kernels(codec, card)
+
     # Phase 6: the round trip.
     x = smooth_image(SEED)
     seen = []
@@ -690,6 +1091,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "smoke.hfc")
         fused_norm.KERNEL.launches = 0
+        device_rans.ENCODE_KERNEL.launches = 0
+        device_rans.DECODE_KERNEL.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         actual_bpp, estimated_bpp = codec.compress_file(x, path)
@@ -700,6 +1103,8 @@ def main() -> int:
         torch.cuda.synchronize()
         t_dec = time.perf_counter() - t0
         launches = fused_norm.KERNEL.launches
+        rt_rans = (device_rans.ENCODE_KERNEL.launches,
+                   device_rans.DECODE_KERNEL.launches)
         for h in hooks:
             h.remove()
         out = load_compressed(path)
@@ -708,6 +1113,9 @@ def main() -> int:
     if launches != len(shapes) or seen != shapes:
         raise AssertionError(f"channel_norm kernel launched {launches} times "
                              f"on shapes {seen}; expected {shapes}")
+    if rt_rans != (0, 1):
+        raise AssertionError(f"round trip: {rt_rans} rans_encode/rans_decode "
+                             f"launches; expected (0, 1)")
     if not (np.array_equal(z_enc, z_dec) and np.array_equal(y_enc, y_dec)):
         raise AssertionError("decoded symbols differ from the encoded ones")
     if recon.shape != x.shape or recon.dtype != np.uint8:
@@ -747,6 +1155,15 @@ def main() -> int:
     log(f"card vs CPU plain path, 64x64 crop: latents max diff {enc_err:.2e} "
         f"of their largest magnitude, reconstruction max abs diff "
         f"{gen_err:.2e} (limits 1e-3)")
+
+    # Phase 6b: compress_many / decompress_many at bench.py's operating point.
+    (enc_launches, dec_launches), batch_out, batch = batch_path(codec, card)
+    # Phase 6c: the coding indices of one image, card against the CPU.
+    flipped, n_idx = indices_card_vs_cpu(codec, cpu, batch_out)
+    log(f"coding indices of a 1024x1024 image, card vs CPU synth_stats on "
+        f"the same hyperlatents: {flipped} of {n_idx} differ (measured, not "
+        f"gated)")
+    print("batch path:", json.dumps(batch), flush=True)
 
     del codec, cpu
     torch.cuda.empty_cache()
@@ -792,7 +1209,12 @@ def main() -> int:
         "per_shape": bwd_summary["per_shape"],
         "g_copies_per_step": train["copies_per_step"],
         "warm_train_step_ms": train["warm_ms"],
-    }]}))
+    }] + [rans_entry(name, rans_timed, rans_err[name], launches_by_path)
+          for name, launches_by_path in (
+              ("rans_encode", {"codec_round_trip": rt_rans[0],
+                               "compress_many": enc_launches}),
+              ("rans_decode", {"codec_round_trip": rt_rans[1],
+                               "decompress_many": dec_launches}))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))
     return 0

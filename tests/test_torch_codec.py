@@ -2,24 +2,34 @@
 
 For the same weights and image, the port's `.hfc` bytes equal the JAX
 package's, each side decodes the other's file, and the reconstructions
-agree within 1e-3 on [0, 1]. Two models: the tiny config of the JAX codec
+agree within 1e-3 on [0, 1]. The device coders' paths (`compress(
+device_encode=True)`, `compress_many`, the device decoder of `decompress`
+and `decompress_many`) write the same bytes as the JAX package's and as the
+host coder, and decode to the host decoder's images; on the CPU, asked for
+with `device_encode=True` / `device_decode=True`, they run the kernels'
+plain versions. Two models: the tiny config of the JAX codec
 tests with JAX-initialised parameters, and the flagship artifact at a small
 crop, both fp32 on the CPU.
 """
 
+import io
 import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from hific_tpu.codec import Codec as JaxCodec
 from hific_tpu.config import mse_lpips_config
 from hific_tpu.models.hific import HiFiC as JaxHiFiC
 from hific_tpu.training.checkpoints import load_params_npz
+from hific_tpu.entropy import container as jax_container
+from hific_tpu_torch import codec as codec_module
 from hific_tpu_torch.codec import Codec
 from hific_tpu_torch.config import Config
+from hific_tpu_torch.entropy import container
 from hific_tpu_torch.weights import leaf_to_float32, load_npz, state_dict_from_jax
 
 ARTIFACT = os.path.join(os.path.dirname(__file__), "..", "artifacts",
@@ -104,3 +114,100 @@ def test_flagship_crop_hfc_bytes_equal_and_cross_decode(flagship, tmp_path):
     x = _smooth_image(48, 64, seed=0)
     r_port, r_jax = _round_trip_both_ways(flagship, x, tmp_path)
     np.testing.assert_allclose(r_port, r_jax, atol=RECON_ATOL, rtol=0)
+
+
+def _hfc(out, writer=container) -> bytes:
+    f = io.BytesIO()
+    writer._save_to(f, out)
+    return f.getvalue()
+
+
+def _u8(h, w, seed):
+    return (_smooth_image(h, w, seed) * 255 + 0.5).astype(np.uint8)
+
+
+@pytest.mark.parametrize("model", ["tiny", "flagship"])
+def test_device_encode_bytes_equal_jax_and_host(model, request):
+    """compress(device_encode=True) writes the JAX package's
+    compress(device_encode=True) bytes, which are the host coder's; the
+    device decoder returns the host decoder's uint8 image."""
+    jax_codec, port = request.getfixturevalue(model)
+    x = _u8(48, 64, seed=2)
+    before = port.device_relaunches
+    dev = port.compress(x, device_encode=True)
+    assert port.device_relaunches == before
+    want = _hfc(jax_codec.compress(x, device_encode=True), jax_container)
+    assert _hfc(dev) == want == _hfc(port.compress(x))
+    r_dev = port.decompress(dev, as_uint8=True, device_decode=True)
+    r_host = port.decompress(dev, as_uint8=True, device_decode=False)
+    assert r_dev.dtype == np.uint8 and r_dev.shape == x.shape
+    np.testing.assert_array_equal(r_dev, r_host)
+
+
+def test_capacity_overrun_relaunches_the_device_encoder(tiny, monkeypatch):
+    """Caps of 8 spill words and 16 events overrun on every stream: the
+    device encoder runs again with the demand it reported as its caps and
+    writes the host coder's bytes."""
+    _, port = tiny
+    x = _u8(48, 64, seed=3)
+    want = _hfc(port.compress(x))
+    monkeypatch.setattr(codec_module, "default_caps",
+                        lambda p, lanes, bits_per_symbol=2: (8, 16))
+    before = port.device_relaunches
+    assert _hfc(port.compress(x, device_encode=True)) == want
+    assert [_hfc(o) for o in port.compress_many(
+        [x, x], device_encode=True)] == [want, want]
+    assert port.device_relaunches - before == 3
+
+
+def test_device_coders_refuse_batch_2(tiny):
+    """Batch 2 is not the device coders' lane layout: asking for them
+    raises, the defaults take the host coder."""
+    _, port = tiny
+    x = np.concatenate([_u8(32, 48, seed=4), _u8(32, 48, seed=5)])
+    with pytest.raises(ValueError, match="device_encode"):
+        port.compress(x, device_encode=True)
+    out = port.compress(x)
+    assert out.batch_shape == 2
+    with pytest.raises(ValueError, match="device_decode"):
+        port.decompress(out, as_uint8=True, device_decode=True)
+    with pytest.raises(ValueError, match="device_decode"):
+        port.decompress_many([out], device_decode=True)
+    r = port.decompress(out, as_uint8=True)
+    assert r.shape == x.shape and r.dtype == np.uint8
+    with pytest.raises(ValueError, match="device_encode"):
+        port.compress_many([x], device_encode=True)
+    (many,) = port.compress_many([x])
+    assert _hfc(many) == _hfc(out)
+
+
+@pytest.mark.parametrize("bucket", [None, 32])
+def test_many_bytes_equal_jax_and_per_image(tiny, bucket):
+    """Three uint8 images of two shapes, one of them not a multiple of 16:
+    compress_many's files, from the device encoder (its plain version here)
+    and from the CPU codec's default host coder, equal the JAX package's
+    compress_many and the port's per-image compress; decompress_many on the
+    device decoder returns the host decoder's images, and with
+    as_numpy=False the same pixels as tensors on the codec's device."""
+    jax_codec, port = tiny
+    images = [_u8(48, 64, seed=6), _u8(40, 56, seed=7), _u8(48, 64, seed=8)]
+    before = port.device_relaunches
+    outs = port.compress_many(images, shape_bucket=bucket, device_encode=True)
+    assert port.device_relaunches == before
+    got = [_hfc(o) for o in outs]
+    want = [_hfc(o, jax_container)
+            for o in jax_codec.compress_many(images, shape_bucket=bucket)]
+    assert got == want
+    assert got == [_hfc(port.compress(x, shape_bucket=bucket))
+                   for x in images]
+    assert got == [_hfc(o) for o in port.compress_many(
+        images, shape_bucket=bucket)]
+    recons = port.decompress_many(outs, device_decode=True)
+    tensors = port.decompress_many(outs, as_numpy=False, device_decode=True)
+    for x, out, r, t in zip(images, outs, recons, tensors):
+        assert tuple(out.spatial_shape) == x.shape[1:3]
+        assert r.shape == x.shape and r.dtype == np.uint8
+        np.testing.assert_array_equal(
+            r, port.decompress(out, as_uint8=True, device_decode=False))
+        assert isinstance(t, torch.Tensor) and t.device == port.device
+        np.testing.assert_array_equal(t.numpy(), r)

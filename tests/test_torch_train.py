@@ -10,12 +10,14 @@ arrays. Everything runs in fp32 on the CPU; tolerances are stated at each
 test.
 """
 
+import inspect
 import json
 import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -24,8 +26,10 @@ import hific_tpu_torch.models.hyperprior as hyperprior_module
 from hific_tpu.config import mse_lpips_config as jax_mse_lpips_config
 from hific_tpu.models.hific import HiFiC as JaxHiFiC
 from hific_tpu.models.hific import Intermediates as JaxIntermediates
+from hific_tpu.models.layers import Norm as JaxNorm
 from hific_tpu.models.lpips import LPIPS as JaxLPIPS
 from hific_tpu.models.lpips import default_lpips_params
+from hific_tpu.ops import d2s as jax_d2s
 from hific_tpu.ops import maths as jax_maths
 from hific_tpu.ops import quantize as jax_quantize
 from hific_tpu.training import checkpoints as jax_checkpoints
@@ -36,8 +40,10 @@ from hific_tpu_torch import runtime
 from hific_tpu_torch.cli import train as train_cli
 from hific_tpu_torch.config import Config, Schedule
 from hific_tpu_torch.models.hific import HiFiC, Intermediates
+from hific_tpu_torch.models.layers import Norm
 from hific_tpu_torch.models.lpips import LPIPS
 from hific_tpu_torch.ops import maths, quantize
+from hific_tpu_torch.ops.fused_norm import channel_norm_fused
 from hific_tpu_torch.training import checkpoints, losses, schedules
 from hific_tpu_torch.training.data import TrainDataset
 from hific_tpu_torch.training.train_step import (
@@ -49,6 +55,7 @@ from hific_tpu_torch.training.train_step import (
 )
 from hific_tpu_torch.weights import (
     flatten_tree,
+    jax_params_from_model,
     lpips_state_dict_from_jax,
     state_dict_from_jax,
 )
@@ -61,6 +68,11 @@ BATCH = (2, 64, 64, 3)
 GRAD_REL = 1e-4
 # Loss and diagnostics.
 LOSS_RTOL = 1e-4
+# Forward activations: the tolerance the port's transforms are held to
+# (tests/test_torch_transforms.py, 1e-4), here as a share of a layer's
+# largest |pre-activation|. A pre-activation within it of a ReLU's kink may
+# fall on either side in the two stacks.
+KINK_REL = 1e-4
 
 
 def _t(a) -> torch.Tensor:
@@ -333,50 +345,353 @@ def test_train_step_gradients_match_jax(tiny, shared_noise):
         assert err <= GRAD_REL * scale, (name, err, scale)
 
 
+# optax.adam's defaults, which the JAX package's two groups use
+# (`hific_tpu/training/train_step.py:make_optimizers`).
+_OPTAX_ADAM = {k: v.default for k, v in
+               inspect.signature(optax.adam).parameters.items()
+               if k in ("b1", "b2", "eps")}
+
+
+def _jax_adam_state(opt_state):
+    """Both groups' optax Adam state -> (count, mu, nu), the moments as
+    port state_dicts."""
+    mu, nu, counts = {}, {}, set()
+    for group in opt_state.inner_states.values():
+        adam = group.inner_state[0]
+        counts.add(int(adam.count))
+        for tree, out in ((adam.mu, mu), (adam.nu, nu)):
+            out.update({k: np.asarray(v) for k, v in flatten_tree(tree).items()
+                        if hasattr(v, "shape")})  # not the other group's
+    (count,) = counts
+    return count, state_dict_from_jax(mu), state_dict_from_jax(nu)
+
+
+def _port_state_from_jax(cfg, jstate, lpips_params):
+    """The port's train state at JAX's: parameters, Adam's mu and nu as
+    exp_avg and exp_avg_sq, and the step count."""
+    count, mu, nu = _jax_adam_state(jstate.opt_state)
+    params = jax.tree_util.tree_map(np.asarray, jstate.params)
+    state, step_fn = _port_state(cfg, params, lpips_params)
+    assert count == int(jstate.step)
+    for name, p in state.model.named_parameters():
+        state.optimizer.state[p] = {
+            "step": torch.tensor(float(count)),
+            "exp_avg": mu[name].clone(), "exp_avg_sq": nu[name].clone()}
+    state.step = count
+    return state, step_fn
+
+
+def _jax_state_from_port(cfg, jstate, state):
+    """`jstate` with the port's parameters, Adam moments and step count."""
+    by_name = dict(state.model.named_parameters())
+
+    def jax_flat(tensor_of):
+        model = HiFiC(_port_config(cfg))
+        model.load_state_dict({n: tensor_of(p) for n, p in by_name.items()})
+        return jax_params_from_model(model)
+
+    flat = {"params": jax_flat(lambda p: p.detach()),
+            "mu": jax_flat(lambda p: state.optimizer.state[p]["exp_avg"]),
+            "nu": jax_flat(lambda p: state.optimizer.state[p]["exp_avg_sq"])}
+
+    def leaf(path, x, tree="params"):
+        names = [str(getattr(k, "key", getattr(k, "name", getattr(k, "idx",
+                                                                    None))))
+                 for k in path]
+        for field in ("mu", "nu"):
+            if field in names:
+                tree, names = field, names[names.index(field) + 1:]
+        if tree == "params" and names[-1] == "count":
+            return jnp.asarray(state.step, x.dtype)
+        return jnp.asarray(flat[tree]["/".join(names)], x.dtype)
+
+    return jstate.replace(
+        step=jnp.asarray(state.step, jstate.step.dtype),
+        params=jax.tree_util.tree_map_with_path(leaf, jstate.params),
+        opt_state=jax.tree_util.tree_map_with_path(leaf, jstate.opt_state))
+
+
+def _step_gradients(before, after):
+    """The gradients JAX's step took, from its Adam state `before` and
+    `after` it (count, mu, nu as port state_dicts): g = (mu' - b1 mu) /
+    (1 - b1), float64, up to the float32 rounding of mu' (a few ulps of
+    |mu| + |mu'|, which `_adam_limit` adds to its interval)."""
+    b1 = _OPTAX_ADAM["b1"]
+    return {n: (after[1][n].double() - b1 * before[1][n].double()) / (1 - b1)
+            for n in before[1]}
+
+
+def _adam_limit(mu, nu, mu_next, g, count, lr, w, grad_rel):
+    """Per-element limit on |port - JAX| after one Adam step of both sides
+    from the same state (mu, nu at `count`), JAX's taking the gradient g and
+    leaving mu_next; float64 numpy throughout.
+
+    - How far optax's update u(g) = lr * m_hat / (sqrt(v_hat) + eps) moves
+      while the gradient moves by d: `grad_rel` of the leaf's largest |g|
+      (the two sides' gradients differ by that much where each takes its
+      own), plus the rounding of g's recovery (`_step_gradients`). du/dg is
+      not constant over [g - d, g + d] where |g| is as small as d, so this
+      is du/dg integrated over it: the largest |u(g') - u(g)| there. As a
+      function of g' (eps aside) u is (A + a g') / sqrt(B + c g'^2), with
+      a = 1 - b1, A = b1 mu, c = 1 - b2, B = b2 nu: monotone but for one
+      turning point, g' = a B / (A c), so the interval's ends and that
+      point, where it lies inside, give the range.
+    - The bias corrections: optax computes 1 - b^t in float32 (at t = 1,
+      1 - 0.999f is 1.3e-5 from 0.001), torch in double, which moves u by
+      up to 6.4e-6 of itself.
+    - The float32 arithmetic, counted (returned apart from the first two): each side rounds its moments (two
+      operations each) and u (about six: the corrections, the square root,
+      eps, the quotient, lr), each within half an ulp, so eight ulps of u
+      for the two sides; and each rounds the sum p + u, so two ulps of the
+      parameter."""
+    b1, b2, eps = (_OPTAX_ADAM[k] for k in ("b1", "b2", "eps"))
+    t = count + 1
+    ulp = lambda x: np.spacing(np.abs(x).astype(np.float32))  # noqa: E731
+    d = (grad_rel * np.abs(g).max()
+         + 4 * ulp(np.abs(mu) + np.abs(mu_next)) / (1 - b1))
+
+    def update(gp, float32_corrections=False):
+        c1, c2 = 1 - b1 ** t, 1 - b2 ** t
+        if float32_corrections:
+            c1, c2 = (float(np.float32(1) - np.float32(b) ** np.float32(t))
+                      for b in (b1, b2))
+        m = (b1 * mu + (1 - b1) * gp) / c1
+        v = (b2 * nu + (1 - b2) * gp * gp) / c2
+        return lr * m / (np.sqrt(v) + eps)
+
+    u = update(g)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        turn = (1 - b1) * b2 * nu / (b1 * mu * (1 - b2))
+    turn = np.where(np.abs(turn - g) <= d, turn, g)
+    moved = np.maximum.reduce([np.abs(update(gp) - u)
+                               for gp in (g - d, g + d, turn)])
+    corrections = np.abs(update(g, float32_corrections=True) - u)
+    return moved + corrections, 2 * ulp(w) + 8 * ulp(u)
+
+
+def _assert_step_within(state, jax_before, jax_after, lr, grad_rel):
+    """The port's parameters after its step from `jax_before`'s state
+    against JAX's step from it, `jax_after`; returns the largest share of
+    the rounding allowance that an error takes beyond the rest of its
+    limit."""
+    before = _jax_adam_state(jax_before.opt_state)
+    after = _jax_adam_state(jax_after.opt_state)
+    g = _step_gradients(before, after)
+    want = state_dict_from_jax(jax.tree_util.tree_map(np.asarray,
+                                                      jax_after.params))
+    worst = 0.0
+    for name, p in state.model.named_parameters():
+        w = want[name].numpy()
+        spread, rounding = _adam_limit(
+            before[1][name].double().numpy(), before[2][name].double().numpy(),
+            after[1][name].double().numpy(), g[name].numpy(), before[0], lr,
+            w, grad_rel)
+        err = np.abs(p.detach().numpy().astype(np.float64) - w)
+        assert np.all(err <= spread + rounding), (
+            after[0], name, float((err - spread - rounding).max()))
+        worst = max(worst, float(((err - spread) / rounding).max()))
+    return worst
+
+
+def _jax_relu_outputs(cfg, params, x_u8):
+    """The outputs of JAX's ChannelNorm + ReLU layers in the training
+    forward at `params`: {port module name: NCHW tensor}. The generator's
+    last one runs inside `ops.d2s.generator_tail_d2s`, on the packed
+    half-resolution grid; a wrapper takes its ReLU output with the ops
+    that function runs and hands it out through a host callback."""
+    model = JaxHiFiC(cfg)
+    out = {}
+    tail = jax_d2s.generator_tail_d2s
+
+    def tail_taking_relu(x, w_up, b_up, gamma, beta, *rest, eps=1e-3,
+                         dtype=None, **kw):
+        compute = dtype or x.dtype
+        y = jax_d2s._conv_valid(
+            jnp.pad(x, ((0, 0), (0, 1), (0, 1), (0, 0))).astype(compute),
+            jax_d2s.upconv_kernel_d2s(w_up).astype(compute))
+        y = y + jax_d2s.upconv_bias_d2s(b_up).astype(y.dtype)
+        n, hh, ww, _ = y.shape
+        y = jax_d2s.channel_norm(y.reshape(n, hh, ww, 4, -1),
+                                 gamma.astype(y.dtype), beta.astype(y.dtype),
+                                 eps=eps)
+        y = jax_d2s.depth_to_space2(jax.nn.relu(y).reshape(n, hh, ww, -1))
+        jax.debug.callback(
+            lambda v: out.__setitem__("generator.norm_up3",
+                                      _t(np.asarray(v))), y)
+        return tail(x, w_up, b_up, gamma, beta, *rest, eps=eps, dtype=dtype,
+                    **kw)
+
+    @jax.jit
+    def forward(p, x):
+        return model.apply(
+            {"params": p}, x, training=True,
+            rngs={"quantize": jax.random.PRNGKey(1)}, mutable=["intermediates"],
+            capture_intermediates=lambda m, method: (
+                isinstance(m, JaxNorm) and m.activation == "relu"
+                and method == "__call__"))[1]["intermediates"]
+
+    def walk(tree, path):
+        for key, value in tree.items():
+            if key == "__call__":
+                (y,) = value  # each layer runs once in the forward
+                out[".".join(path)] = _t(np.asarray(y))
+            else:
+                walk(value, path + [key])
+
+    jax_d2s.generator_tail_d2s = tail_taking_relu
+    try:
+        captured = forward(
+            params, jax_train_step.ingest_batch(jnp.asarray(x_u8), cfg))
+        jax.effects_barrier()
+    finally:
+        jax_d2s.generator_tail_d2s = tail
+    walk(captured, [])
+    return out
+
+
+def _step_with_gradients(state, step_fn, x, grads, jax_relu):
+    """One port step whose backward delivers `grads` (float64, by
+    parameter name) to Adam in place of the port's own gradients. Returns
+    the port's own gradients, and the ReLU elements left out of them: where
+    the port's and JAX's ReLU outputs `jax_relu` take different sides of
+    the kink, the port's backward takes JAX's side. Each such element is a
+    (layer, count, largest |pre-activation| of either side there, KINK_REL
+    of the layer's largest) row."""
+    own, kinks, handles = {}, [], []
+
+    def deliver(g, name):
+        own[name] = g.detach().double().clone()
+        return grads[name].to(g.dtype)
+
+    def kink_side(module, inputs, out, name):
+        want = jax_relu[name]
+        flip = (out > 0) != (want > 0)
+        if not bool(flip.any()):
+            return None
+        a = channel_norm_fused(inputs[0], module.gamma, module.beta)
+        near = torch.maximum(a.detach().abs(), want.abs())[flip]
+        kinks.append((name, int(flip.sum()), float(near.max()),
+                      KINK_REL * float(a.detach().abs().max())))
+        passes = torch.where(flip & (want > 0), a - a.detach(),
+                             torch.zeros_like(a))
+        return torch.where(flip, out.detach() + passes, out)
+
+    for name, p in state.model.named_parameters():
+        handles.append(p.register_hook(lambda g, n=name: deliver(g, n)))
+    for name, m in state.model.named_modules():
+        if isinstance(m, Norm) and m.activation == "relu":
+            handles.append(m.register_forward_hook(
+                lambda m, i, o, n=name: kink_side(m, i, o, n)))
+    try:
+        step_fn(state, x)
+    finally:
+        for h in handles:
+            h.remove()
+    return own, kinks
+
+
+def _assert_own_gradients(own, kinks, jax_before, jax_after):
+    """The port's own gradients against those of JAX's step (recovered from
+    its mu): each leaf within GRAD_REL of its largest |g|, plus the rounding
+    of the recovery, with the elements of `kinks` left out; each of those
+    lies within KINK_REL of the kink on both sides. Returns the largest
+    error as a share of GRAD_REL."""
+    for name, count, near, limit in kinks:
+        assert near <= limit, (name, count, near, limit)
+    before = _jax_adam_state(jax_before.opt_state)
+    after = _jax_adam_state(jax_after.opt_state)
+    want = _step_gradients(before, after)
+    ulp = lambda t: np.spacing(np.abs(t).astype(np.float32))  # noqa: E731
+    worst = 0.0
+    for name, w in want.items():
+        w = w.numpy()
+        scale = np.abs(w).max()
+        rounding = 4 * ulp(np.abs(before[1][name].numpy())
+                           + np.abs(after[1][name].numpy())) / (
+            1 - _OPTAX_ADAM["b1"])
+        err = np.abs(own[name].numpy() - w)
+        assert np.all(err <= GRAD_REL * scale + rounding), (
+            after[0], name, float(err.max()), scale)
+        worst = max(worst, float(err.max() / (GRAD_REL * scale)))
+    return worst
+
+
 def test_two_train_steps_match_jax(tiny, shared_noise):
-    """Two steps of JAX's jitted train_step_g and the port's. Adam moves
-    every parameter by about lr * sign(g) on its first step, so where |g| is
-    near the gradients' noise the two sides move apart by up to 2 lr, and
-    the second step's gradients then differ by a few percent. So: after
-    step 1 the parameters agree within two float32 ulps where |g1| exceeds
-    1% of the
-    leaf's largest; after step 2 within 5e-6 (5% of lr = 1e-4; measured
-    2.1e-6) where both steps' |g| exceed 1% of the leaf's largest and agree
-    in sign (where they disagree, Adam's second move is a difference of
-    nearly equal terms)."""
+    """Two steps of JAX's jitted train_step_g and the port's. Step 1 holds
+    the port's own step; step 2 holds that Adam's state carries over from
+    step 1, and the port's own gradients once the parameters have moved.
+
+    Each parameter is held to `_adam_limit`, derived from optax's update:
+    - step 1, from the shared initial state: each side with its own
+      gradients, within GRAD_REL of the leaf's largest |g| (what
+      `test_train_step_gradients_match_jax` holds at this point);
+    - step 2 from JAX's step-1 state (parameters, mu and nu as exp_avg and
+      exp_avg_sq, count), and the port's chained step 2 against JAX's step 2
+      from the port's step-1 state carried into JAX: both sides step from
+      one state with the gradients JAX's step took (recovered from its mu),
+      so only the two optimizers' arithmetic parts them.
+    The port's own step-2 gradients, from both states, are held to
+    GRAD_REL of each leaf's largest |g| against those JAX's step took,
+    with the ReLU elements where the two stacks take different sides of
+    the kink left out (the port's backward takes JAX's side there), each
+    found from the two stacks' activations and each within KINK_REL of the
+    kink on both sides. Nothing in the limits is fitted to a host.
+
+    Why: at step 1 Adam moves every parameter by about lr, so the norms'
+    beta become +-lr, and a pre-activation x_hat * gamma + beta can then
+    sit within float32 noise of a ReLU's kink, where either side is right.
+    On an 8-core AVX-512 host one element of generator.norm_up0 does
+    (|pre-activation| 5.9e-7, its limit 4.4e-4): left in, the step-2
+    gradients of that norm's beta and of upconv0 differ by 0.65% and 1.2%
+    of their leaves' largest |g|, and those of the encoder and the
+    generator's earlier layers by 0.04-0.14%, against GRAD_REL = 0.01%.
+    The limit this replaces (5e-6 where both steps' |g| exceeded 1% and
+    agreed in sign) failed there by 1.7e-6 at generator.upconv2.weight.
+    Measured on that host: beyond the rest of its limit, an error takes at
+    most 0.51 of the rounding allowance (step 1 0.504; step 2 carried
+    0.498, chained 0.499); the step-2 gradients reach 0.32 (carried, one
+    element left out) and 0.35 (chained, none) of GRAD_REL."""
     cfg, jstate, params, lpips_params, x, _ = tiny
     step_j = jax.jit(jax_train_step.make_train_step_g(
         cfg, _jax_lpips_apply(lpips_params)))
-    _, _, g1 = _jax_grads(cfg, params, lpips_params, x, 0)
+
+    def lr(step):
+        return float(jax_schedules.scheduled_param(cfg.learning_rate,
+                                                   cfg.lr_schedule, step))
+
     s1, _ = step_j(jstate, jnp.asarray(x))
-    p1 = jax.tree_util.tree_map(np.asarray, s1.params)
-    _, _, g2 = _jax_grads(cfg, p1, lpips_params, x, 1)
     s2, _ = step_j(s1, jnp.asarray(x))
     assert int(s2.step) == 2
-    g1, g2 = state_dict_from_jax(g1), state_dict_from_jax(g2)
 
-    def big(g):
-        return np.abs(g) > 1e-2 * np.abs(g).max()
+    # Step 1, the start of the port's chained run.
+    chained, step_fn = _port_state(cfg, params, lpips_params)
+    step_fn(chained, x)
+    assert chained.step == 1
+    worst = [_assert_step_within(chained, jstate, s1, lr(0), GRAD_REL)]
 
-    state, step_fn = _port_state(cfg, params, lpips_params)
-    for step, want in enumerate(
-            (p1, jax.tree_util.tree_map(np.asarray, s2.params)), 1):
-        step_fn(state, x)
-        assert state.step == step
-        want = state_dict_from_jax(want)
-        compared = 0
-        for name, p in state.model.named_parameters():
-            a, b = g1[name].numpy(), g2[name].numpy()
-            mask = big(a) if step == 1 else (
-                big(a) & big(b) & (np.sign(a) == np.sign(b)))
-            w = want[name].numpy()
-            tol = (2 * np.spacing(np.abs(w)) + 1e-9 if step == 1
-                   else 5e-6)
-            excess = (np.abs(p.detach().numpy() - w) - tol)[mask]
-            assert excess.max(initial=0.0) <= 0, (step, name, excess.max())
-            compared += int(mask.sum())
-        assert compared > 0.1 * sum(p.numel()
-                                    for p in state.model.parameters())
+    # Step 2 from JAX's step-1 state, and the chained step 2 against JAX's
+    # step 2 from the port's step-1 state: Adam with JAX's gradients, and
+    # the port's own gradients.
+    s1_port = _jax_state_from_port(cfg, s1, chained)
+    s2_port, _ = step_j(s1_port, jnp.asarray(x))
+    carried, step_fn = _port_state_from_jax(cfg, s1, lpips_params)
+    grad_shares, left_out = [], []
+    for state, before, after in ((carried, s1, s2),
+                                 (chained, s1_port, s2_port)):
+        own, kinks = _step_with_gradients(
+            state, step_fn, x,
+            _step_gradients(_jax_adam_state(before.opt_state),
+                            _jax_adam_state(after.opt_state)),
+            _jax_relu_outputs(cfg, before.params, x))
+        assert state.step == 2
+        worst.append(_assert_step_within(state, before, after, lr(1), 0.0))
+        grad_shares.append(_assert_own_gradients(own, kinks, before, after))
+        left_out.append(kinks)
+    print("largest share of the rounding allowance, per check:", worst)
+    print("step-2 gradients, largest error as a share of GRAD_REL "
+          "(carried, chained):", grad_shares)
+    print("ReLU elements left out (layer, count, largest |pre-activation|, "
+          "limit):", left_out)
 
 
 def test_eval_step_uses_rounded_hyperlatents(tiny, shared_noise):
