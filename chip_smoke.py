@@ -30,8 +30,11 @@ and holds every kernel of those paths against its plain PyTorch version:
    versions, bit for bit, on seeded symbol planes at the path's shapes (y
    of 1024x1024 and 768x512 images, z of a 1024x1024 one; escape rates 0,
    0.08 and 0.3 and a multi-nibble payload), streams equal to the host
-   coder's, with the kernels', plain versions' and host coder's times and
-   the bound;
+   coder's, with the kernels' times (and us a position), the plain
+   versions' and host coder's times and the bound; then a batch of nine
+   streams (four 1024x1024 images' y and z, one 768x512 y) in one launch
+   of each kernel, every buffer against the plain versions and the host
+   coder, with the batch's time and the same streams' one launch each;
 6. compress_file -> .hfc -> decompress_file of a seeded smooth 768x512
    image: decoded symbols equal the encoded ones, the forward kernel ran
    exactly once per ChannelNorm (29 launches) and the decode kernel once,
@@ -39,9 +42,11 @@ and holds every kernel of those paths against its plain PyTorch version:
    64x64 crop (within 1e-3); then, at bench.py's operating point (four
    seeded 1024x1024 images, the encoder's output scaled into 0.20-0.45
    bpp), compress_many and decompress_many: no encode past the default
-   caps, two encode and one decode launch per image, `.hfc` bytes equal to the host
+   caps, one encode launch (all y and z streams) and one decode launch
+   (all y streams) for the four images, `.hfc` bytes equal to the host
    coder's and images equal to the host decoder's, and the serial,
-   pipelined and device-resident times; and the count of coding indices
+   pipelined and device-resident times with the rANS kernels' device time
+   in a profiled pass; and the count of coding indices
    where the card's synth_stats differs from the CPU's on one image's
    hyperlatents (reported, not gated);
 7. one tiny-config training step on the card against the same step on the
@@ -612,101 +617,125 @@ def host_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
+def rans_symbols(codec, kind, p, rate, rng):
+    """Seeded (P, L) int32 symbol planes and rows for one stream: y (220
+    lanes against the scale tables) from a Gaussian at each row's scale, z
+    (320 lanes, the model's factorized tables) around 0; a share `rate`
+    pushed past the rows' tracked ranges, or a multi-nibble payload."""
+    tables = (codec.conditional.tables if kind == "y"
+              else codec.factorized.tables)
+    lanes = 220 if kind == "y" else tables.cdf.shape[0]
+    if kind == "y":
+        idx = rng.randint(0, 40, (p, lanes))
+        sym = np.round(rng.randn(p, lanes)
+                       * codec.conditional.scale_table[idx])
+    else:
+        idx = np.broadcast_to(np.arange(lanes), (p, lanes))
+        sym = np.round(rng.randn(p, lanes) * 1.5)
+    lo = tables.cdf_offset[idx]
+    hi = lo + tables.cdf_length[idx] - 3   # the last tracked value
+    sym = np.clip(sym, lo, hi)
+    if rate == "multi-nibble":
+        for v in (30_000, -30_000, 999_999, -999_999):
+            sym[rng.randint(p), rng.randint(lanes)] = v
+    elif rate:
+        esc = rng.rand(p, lanes) < rate
+        far = rng.randint(1, 300, (p, lanes))
+        sym = np.where(esc & (rng.rand(p, lanes) < 0.5), lo - far, sym)
+        sym = np.where(esc & (sym >= lo), hi + far, sym)
+    return (np.ascontiguousarray(sym, np.int32),
+            np.ascontiguousarray(idx, np.int32))
+
+
+RANS_SHAPES = [("y 1024x1024", "y", 4096, (0.0, 0.08)),
+               ("y 768x512", "y", 1536, (0.0, 0.08, 0.3, "multi-nibble")),
+               ("z 1024x1024", "z", 256, (0.0, 0.08, 0.3))]
+# The multi-stream batch: four 1024x1024 images' y and z, one 768x512 y.
+RANS_BATCH = ([("y", 4096, r) for r in (0.0, 0.08, 0.3, 0.0)]
+              + [("z", 256, r) for r in (0.0, 0.08, 0.3, 0.0)]
+              + [("y", 1536, 0.0)])
+
+
 def rans_cases(codec, rng):
     """Seeded symbol planes at the device coders' main-path shapes: y of a
     1024x1024 image (P = 4096), y of a 768x512 one (P = 1536), both 220
     lanes against the scale tables, and z of a 1024x1024 image (P = 256,
     320 lanes) against the model's factorized tables; escape rates 0, 0.08
     and 0.3, and a multi-nibble payload. Yields (label, kind, sym, idx)."""
-    y_t, z_t = codec.conditional.tables, codec.factorized.tables
-    shapes = [("y 1024x1024", "y", 4096, (0.0, 0.08)),
-              ("y 768x512", "y", 1536, (0.0, 0.08, 0.3, "multi-nibble")),
-              ("z 1024x1024", "z", 256, (0.0, 0.08, 0.3))]
-    for label, kind, p, rates in shapes:
-        tables = y_t if kind == "y" else z_t
-        lanes = 220 if kind == "y" else tables.cdf.shape[0]
+    for label, kind, p, rates in RANS_SHAPES:
         for rate in rates:
-            if kind == "y":
-                idx = rng.randint(0, 40, (p, lanes))
-                sym = np.round(rng.randn(p, lanes)
-                               * codec.conditional.scale_table[idx])
-            else:
-                idx = np.broadcast_to(np.arange(lanes), (p, lanes))
-                sym = np.round(rng.randn(p, lanes) * 1.5)
-            lo = tables.cdf_offset[idx]
-            hi = lo + tables.cdf_length[idx] - 3   # the last tracked value
-            sym = np.clip(sym, lo, hi)
-            if rate == "multi-nibble":
-                for v in (30_000, -30_000, 999_999, -999_999):
-                    sym[rng.randint(p), rng.randint(lanes)] = v
-            elif rate:
-                esc = rng.rand(p, lanes) < rate
-                far = rng.randint(1, 300, (p, lanes))
-                sym = np.where(esc & (rng.rand(p, lanes) < 0.5), lo - far, sym)
-                sym = np.where(esc & (sym >= lo), hi + far, sym)
             yield (f"{label} escapes {rate}", kind,
-                   np.ascontiguousarray(sym, np.int32),
-                   np.ascontiguousarray(idx, np.int32))
+                   *rans_symbols(codec, kind, p, rate, rng))
 
 
 def check_rans_kernels(codec, card: str):
     """rans_encode and rans_decode against their plain versions on the card,
-    bit for bit, at each case of `rans_cases`: every buffer of the encoder
-    equal, its stream equal to the host coder's, and the host coder's stream
+    bit for bit, at each case of `rans_cases` (one stream a launch), then
+    over RANS_BATCH in one launch each: every buffer of the encoder equal,
+    its stream equal to the host coder's, and the host coder's stream
     decoded to the symbols by both. Times (escape rate 0): the kernel's ms
-    (CUDA events, median of 20), the plain version's (median of 3), the
-    native host coder's for the same stream (median of 5) and the bound.
-    Returns ({(kernel, shape label): timings}, {kernel: max abs error of
-    any output word or symbol})."""
-    from hific_tpu_torch.entropy import coding, native
+    (CUDA events, median of 20) and us a position, the plain version's
+    (median of 3), the native host coder's for the same stream (median of
+    5) and the bound; and the batch's launch. Returns ({(kernel, shape
+    label): timings}, {kernel: max abs error of any output word or
+    symbol}, the batch's timings)."""
+    from hific_tpu_torch.entropy import native
     from hific_tpu_torch.entropy.device_decode import (
-        decode_scan, decode_scan_reference, words_tensor)
+        DecodeJob, decode_scan, decode_scan_many, decode_scan_reference,
+        words_tensor)
     from hific_tpu_torch.entropy.device_encode import (
-        assemble_stream, encode_scan, encode_scan_reference)
+        EncodeJob, encode_scan, encode_scan_many, encode_scan_reference)
 
-    enc_tables = dict(zip("yz", codec._enc_tables))
-    dec_tables = codec._dec_tables
+    packed = dict(zip("yz", codec._rans_tables))
     host_tables = {"y": codec.conditional.tables, "z": codec.factorized.tables}
     timed, max_err = {}, {"rans_encode": 0, "rans_decode": 0}
-    for label, kind, sym, idx in rans_cases(codec, np.random.RandomState(SEED)):
+
+    def caps_of(sym):
         p, lanes = sym.shape
+        return dict(spill_cap=p * lanes + 4096, lens_cap=64 * p + 64)
+
+    def host_encode(kind, sym, idx):
         t = host_tables[kind]
-        sym_d = torch.from_numpy(sym).cuda()
-        idx_d = torch.from_numpy(idx).cuda()
-        caps = dict(spill_cap=p * lanes + 4096, lens_cap=64 * p + 64)
-        got = encode_scan(sym_d, idx_d, enc_tables[kind], **caps)
-        want = encode_scan_reference(sym_d, idx_d, enc_tables[kind], **caps)
+        return native.encode_lanes(sym, idx, t.cdf, t.cdf_length,
+                                   t.cdf_offset, t.precision)
+
+    def check_encode(label, got, want, host, lanes):
         err = max(int((a.long() - b.long()).abs().max())
                   for a, b in zip(got, want))
         max_err["rans_encode"] = max(max_err["rans_encode"], err)
         if err:
             raise AssertionError(f"rans_encode {label}: differs from its "
                                  f"plain version by {err}")
-        heads, spill, lens, counts = (a.cpu().numpy().view(np.uint32)
-                                      for a in got)
-        stream = assemble_stream(heads, spill, lens, int(counts[0]),
-                                 int(counts[1]))
-        host = native.encode_lanes(sym, idx, t.cdf, t.cdf_length,
-                                   t.cdf_offset, t.precision)
-        if not np.array_equal(stream, host):
+        stream, _, counts = (a.cpu().numpy().view(np.uint32) for a in got)
+        if not (np.array_equal(stream[:len(host)], host)
+                and not stream[len(host):].any()
+                and int(counts[0]) == len(host) - 2 * lanes):
             raise AssertionError(f"rans_encode {label}: stream differs from "
                                  f"the host coder's")
-        decoded = None
-        if kind == "y":
-            words = words_tensor(host, "cuda")
-            decoded, bad = decode_scan(words, idx_d, dec_tables)
-            plain = decode_scan_reference(words, idx_d, dec_tables)
-            err = int((decoded.long() - plain.long()).abs().max())
-            max_err["rans_decode"] = max(max_err["rans_decode"], err)
-            if not (int(bad) == 0 and err == 0
-                    and np.array_equal(decoded.cpu().numpy(), sym)):
-                raise AssertionError(f"rans_decode {label}: differs from its "
-                                     f"plain version or the symbols")
-        else:  # z has no device decoder on the path: the host's, for a check
-            z_dec = native.decode_lanes(host, idx, t.cdf, t.cdf_length,
-                                        t.cdf_offset, t.inverse, t.precision)
-            if not np.array_equal(z_dec, sym):
-                raise AssertionError(f"host decode {label} differs")
+
+    def check_decode(label, decoded, bad, plain, sym):
+        err = int((decoded.long() - plain.long()).abs().max())
+        max_err["rans_decode"] = max(max_err["rans_decode"], err)
+        if not (int(bad) == 0 and err == 0
+                and np.array_equal(decoded.cpu().numpy(), sym)):
+            raise AssertionError(f"rans_decode {label}: differs from its "
+                                 f"plain version or the symbols")
+
+    for label, kind, sym, idx in rans_cases(codec, np.random.RandomState(SEED)):
+        p, lanes = sym.shape
+        t = host_tables[kind]
+        sym_d = torch.from_numpy(sym).cuda()
+        idx_d = torch.from_numpy(idx).cuda()
+        job = EncodeJob(sym_d, idx_d, packed[kind], **caps_of(sym))
+        got = encode_scan(*job)
+        want = encode_scan_reference(*job)
+        host = host_encode(kind, sym, idx)
+        check_encode(label, got, want, host, lanes)
+        counts = got[2].cpu().numpy()
+        words = words_tensor(host, "cuda")
+        decoded, bad = decode_scan(words, idx_d, packed[kind])
+        check_decode(label, decoded, bad,
+                     decode_scan_reference(words, idx_d, packed[kind]), sym)
         log(f"rans {label}: P={p} L={lanes}, {len(host)} words "
             f"({32 * len(host) / sym.size:.3f} bits/symbol), "
             f"{int(counts[1])} push events: kernels equal their plain "
@@ -715,12 +744,9 @@ def check_rans_kernels(codec, card: str):
             continue
         shape = label.split(" escapes")[0]
         n = p * lanes
-        k_ms = event_ms(lambda: encode_scan(sym_d, idx_d, enc_tables[kind],
-                                            **caps), 20)
-        p_ms = event_ms(lambda: encode_scan_reference(
-            sym_d, idx_d, enc_tables[kind], **caps), 3)
-        h_ms = host_ms(lambda: native.encode_lanes(
-            sym, idx, t.cdf, t.cdf_length, t.cdf_offset, t.precision), 5)
+        k_ms = event_ms(lambda: encode_scan(*job), 20)
+        p_ms = event_ms(lambda: encode_scan_reference(*job), 3)
+        h_ms = host_ms(lambda: host_encode(kind, sym, idx), 5)
         # Bytes, each read once: the symbols and indices; of the CDF rows
         # the two words a symbol gathers or the whole table, whichever is
         # less; the rows' lengths and offsets whole. Written: the heads,
@@ -729,32 +755,71 @@ def check_rans_kernels(codec, card: str):
         e_bytes = (n * 8 + min(n * 8, rows * max_len * 4) + rows * 8
                    + (2 * lanes + int(counts[0]) + int(counts[1]) + 3) * 4)
         timed[("rans_encode", shape)] = dict(
-            p=p, lanes=lanes, ms=k_ms, plain_ms=p_ms, host_coder_ms=h_ms,
+            p=p, lanes=lanes, ms=k_ms, us_per_position=1e3 * k_ms / p,
+            plain_ms=p_ms, host_coder_ms=h_ms,
             bound_ms=e_bytes / HBM_BYTES_PER_S * 1e3)
         if kind == "y":
-            k_ms = event_ms(lambda: decode_scan(words, idx_d, dec_tables), 20)
-            p_ms = event_ms(lambda: decode_scan_reference(words, idx_d,
-                                                          dec_tables), 3)
+            k_ms = event_ms(lambda: decode_scan(words, idx_d, packed[kind]),
+                            20)
+            p_ms = event_ms(lambda: decode_scan_reference(
+                words, idx_d, packed[kind]), 3)
             h_ms = host_ms(lambda: native.decode_lanes(
                 host, idx, t.cdf, t.cdf_length, t.cdf_offset, t.inverse,
                 t.precision), 5)
             # Bytes, each read once: the stream and the indices; of the
-            # (start|freq, value) table the pair a symbol gathers or the
-            # whole table, whichever is less; the rows' overflow codes and
-            # offsets whole. Written: the symbols.
+            # CDF rows the two words a symbol's start and frequency take or
+            # the whole table, whichever is less (as for the encoder); the
+            # rows' lengths and offsets whole. Written: the symbols.
             d_bytes = (len(host) * 4 + n * 4
-                       + min(n * 8, dec_tables.t_pair.numel() * 4)
-                       + rows * 8 + n * 4)
+                       + min(n * 8, rows * max_len * 4) + rows * 8 + n * 4)
             timed[("rans_decode", shape)] = dict(
-                p=p, lanes=lanes, ms=k_ms, plain_ms=p_ms, host_coder_ms=h_ms,
+                p=p, lanes=lanes, ms=k_ms, us_per_position=1e3 * k_ms / p,
+                plain_ms=p_ms, host_coder_ms=h_ms,
                 bound_ms=d_bytes / HBM_BYTES_PER_S * 1e3)
     for (name, shape), r in timed.items():
         print(f"    {name} {shape} (P={r['p']}, L={r['lanes']}): kernel "
-              f"{r['ms']:.3f} ms, plain {r['plain_ms']:.1f} ms, host coder "
+              f"{r['ms']:.3f} ms ({r['us_per_position']:.3f} us a position), "
+              f"plain {r['plain_ms']:.1f} ms, host coder "
               f"{r['host_coder_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
               f"(bytes; a serial scan sits far above it) ({card})",
               flush=True)
-    return timed, max_err
+
+    # The multi-stream batch: one launch of each kernel for all streams.
+    rng = np.random.RandomState(SEED + 1)
+    streams = [(kind, *rans_symbols(codec, kind, p, rate, rng))
+               for kind, p, rate in RANS_BATCH]
+    jobs = [EncodeJob(torch.from_numpy(sym).cuda(),
+                      torch.from_numpy(idx).cuda(), packed[kind],
+                      **caps_of(sym)) for kind, sym, idx in streams]
+    hosts = [host_encode(kind, sym, idx) for kind, sym, idx in streams]
+    djobs = [DecodeJob(words_tensor(h, "cuda"), job.idx_l, job.tables)
+             for h, job in zip(hosts, jobs)]
+    got = encode_scan_many(jobs)
+    decoded = decode_scan_many(djobs)
+    for k, ((kind, sym, idx), job, host) in enumerate(zip(streams, jobs,
+                                                          hosts)):
+        label = f"batch stream {k} ({kind}, P={sym.shape[0]})"
+        check_encode(label, got[k], encode_scan_reference(*job), host,
+                     sym.shape[1])
+        check_decode(label, *decoded[k], decode_scan_reference(*djobs[k]),
+                     sym)
+    positions = sum(sym.shape[0] for _, sym, _ in streams)
+    batch = {
+        "streams": len(streams), "positions": positions,
+        "encode_ms": event_ms(lambda: encode_scan_many(jobs), 20),
+        "decode_ms": event_ms(lambda: decode_scan_many(djobs), 20),
+        "encode_ms_one_by_one": sum(
+            event_ms(lambda: encode_scan(*job), 5) for job in jobs),
+        "decode_ms_one_by_one": sum(
+            event_ms(lambda: decode_scan(*job), 5) for job in djobs),
+    }
+    log(f"rans batch of {len(streams)} streams (4 x (y P=4096, z P=256), y "
+        f"P=1536; escape rates 0-0.3): every buffer equal to the plain "
+        f"versions and the host coder; one launch: encode "
+        f"{batch['encode_ms']:.3f} ms, decode {batch['decode_ms']:.3f} ms "
+        f"(stream by stream: {batch['encode_ms_one_by_one']:.3f} and "
+        f"{batch['decode_ms_one_by_one']:.3f} ms) ({card})")
+    return timed, max_err, batch
 
 
 def bench_image(seed: int, h: int = 1024, w: int = 1024) -> np.ndarray:
@@ -818,9 +883,9 @@ def batch_path(codec, card: str):
     if codec.device_relaunches != relaunches:
         raise AssertionError(f"{codec.device_relaunches - relaunches} of 4 "
                              f"images overran the default caps")
-    if (enc_launches, dec_launches) != (8, 4):
+    if (enc_launches, dec_launches) != (1, 1):
         raise AssertionError(f"{enc_launches} encode and {dec_launches} "
-                             f"decode launches for 4 images; expected 8 and 4")
+                             f"decode launches for 4 images; expected 1 and 1")
     with tempfile.TemporaryDirectory() as tmp:
         def hfc(out, name):
             path = os.path.join(tmp, name)
@@ -855,8 +920,8 @@ def batch_path(codec, card: str):
                                  "on the card to the host coder's bytes")
     bpps = [o.total_bpp for o in outs]
     log(f"batch path: alpha {alpha:.5f} ({bpp:.3f} bpp on the probe image); "
-        f"4 images at {np.mean(bpps):.4f} bpp, none past the caps; 8 "
-        f"encode and 4 decode launches; .hfc bytes equal the host coder's, uint8 images "
+        f"4 images at {np.mean(bpps):.4f} bpp, none past the caps; 1 "
+        f"encode and 1 decode launch; .hfc bytes equal the host coder's, uint8 images "
         f"the host decoder's; an encode past forced caps of 8 words and 16 "
         f"events relaunched on the card to the same bytes")
 
@@ -895,6 +960,10 @@ def batch_path(codec, card: str):
     wall_ms, rows, busy_ms = profiled(device_pass)
     rans_ms = {k: sum(e.self_device_time_total for e in rows if k in e.key)
                / 1e3 for k in ("rans_encode", "rans_decode")}
+    for e in rows:
+        if "rans_" in e.key:
+            print(f"    {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} "
+                  f"{e.key[:90]}")
     log(f"profiled device-resident pass (4 images): wall {wall_ms:.1f} ms, "
         f"device busy {busy_ms:.1f} ms ({busy_ms / wall_ms:.0%}); "
         f"rans_encode {rans_ms['rans_encode']:.2f} ms, rans_decode "
@@ -908,6 +977,8 @@ def batch_path(codec, card: str):
         "pipelined_ms_per_image": pipelined / 4,
         "pipelined_mp_s": 4 * mp / (pipelined / 1e3),
         "device_resident_mp_s": 4 * mp / (resident / 1e3),
+        "profiled_rans_encode_ms": rans_ms["rans_encode"],
+        "profiled_rans_decode_ms": rans_ms["rans_decode"],
     }
     log(f"batch path, 1024x1024 at {summary['bpp']:.4f} bpp: serial "
         f"compress_file {enc:.1f} + decompress_file {dec:.1f} ms per image "
@@ -975,9 +1046,10 @@ RANS_REPLACES = {"rans_encode": "hific_tpu/entropy/device_encode.py:222",
                  "rans_decode": "hific_tpu/entropy/device_decode.py:147"}
 
 
-def rans_entry(name: str, timed_rans, max_err: int, launches_by_path):
+def rans_entry(name: str, timed_rans, max_err: int, launches_by_path, batch):
     """The kernels line's entry of a rANS kernel: its times per 1024x1024
-    image (y, and for the encoder z too)."""
+    image (y, and for the encoder z too), per shape and for the
+    multi-stream batch in one launch."""
     rows = {shape: r for (kernel, shape), r in timed_rans.items()
             if kernel == name}
     image = [r for shape, r in rows.items() if "1024x1024" in shape]
@@ -992,6 +1064,10 @@ def rans_entry(name: str, timed_rans, max_err: int, launches_by_path):
            for key in ("ms", "plain_ms", "host_coder_ms", "bound_ms")},
         "bound_by": "bytes", "library_ms": None,
         "per_shape": rows,
+        "batch": {"streams": batch["streams"],
+                  "positions": batch["positions"],
+                  "ms": batch[f"{name[5:]}_ms"],
+                  "ms_one_by_one": batch[f"{name[5:]}_ms_one_by_one"]},
     }
 
 
@@ -1078,7 +1154,7 @@ def main() -> int:
     log(f"tables built in {time.perf_counter() - t0:.1f} s")
 
     # Phase 5b: the device rANS kernels against their plain versions.
-    rans_timed, rans_err = check_rans_kernels(codec, card)
+    rans_timed, rans_err, rans_batch = check_rans_kernels(codec, card)
 
     # Phase 6: the round trip.
     x = smooth_image(SEED)
@@ -1209,7 +1285,8 @@ def main() -> int:
         "per_shape": bwd_summary["per_shape"],
         "g_copies_per_step": train["copies_per_step"],
         "warm_train_step_ms": train["warm_ms"],
-    }] + [rans_entry(name, rans_timed, rans_err[name], launches_by_path)
+    }] + [rans_entry(name, rans_timed, rans_err[name], launches_by_path,
+                     rans_batch)
           for name, launches_by_path in (
               ("rans_encode", {"codec_round_trip": rt_rans[0],
                                "compress_many": enc_launches}),

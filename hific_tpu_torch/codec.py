@@ -15,14 +15,16 @@ symbols, which is what keeps the two sides' CDF rows identical.
 Two coders write the same bytes. The host coder (`entropy/coding.py`, the
 native `rans.cc`) fetches the symbol planes; the device coders
 (`entropy/device_encode.py`, `device_decode.py`, CUDA kernels on the card)
-code where the symbols are. As in the JAX package on its accelerator, on a
-CUDA codec `compress` uses the host coder unless asked, `compress_many` the
-device encoder for every batch-1 image, and `decompress(as_uint8=True)` and
-`decompress_many` the device decoder wherever the payload is batch 1; a CPU
-codec takes the host coder unless asked (`device_encode=True`,
-`device_decode=True` run the kernels' plain versions). An encode that
-overruns a device buffer's default capacity is launched again on the device
-with buffers of the demand it reported. Not ported yet: `pipeline_chunk`, `wire_chunk` and the packed host-coder
+code where the symbols are, a batch of streams per kernel launch. As in the
+JAX package on its accelerator, on a CUDA codec `compress` uses the host
+coder unless asked, `compress_many` the device encoder for every batch-1
+image (the y and z streams of all of them in one launch), and
+`decompress(as_uint8=True)` and `decompress_many` the device decoder
+wherever the payload is batch 1 (the y streams of all of them in one
+launch); a CPU codec takes the host coder unless asked (`device_encode=True`,
+`device_decode=True` run the kernels' plain versions). The streams that
+overrun a device buffer's default capacity are launched again on the device
+with buffers of the demand they reported. Not ported yet: `pipeline_chunk`, `wire_chunk` and the packed host-coder
 wire, tiling, `coder_threads` (container v2) and the spatial methods.
 """
 
@@ -38,21 +40,21 @@ from hific_tpu_torch.entropy.container import (
     save_compressed,
 )
 from hific_tpu_torch.entropy.device_decode import (
-    build_device_tables,
-    decode_scan,
+    DecodeJob,
+    decode_scan_many,
     words_tensor,
 )
 from hific_tpu_torch.entropy.device_encode import (
     Z_SPILL_BITS,
-    assemble_stream,
+    EncodeJob,
     default_caps,
-    encode_scan,
-    encode_tables,
+    encode_scan_many,
 )
 from hific_tpu_torch.entropy.entropy_models import (
     ConditionalEntropyModel,
     FactorizedEntropyModel,
 )
+from hific_tpu_torch.entropy.rans_tables import rans_tables
 from hific_tpu_torch.models.hific import HiFiC
 from hific_tpu_torch.ops.padding import pad_factor
 from hific_tpu_torch.runtime import fp32_numerics, resolve_device
@@ -119,15 +121,24 @@ def _output(z_encoded, y_encoded, hyper_spatial, spatial_shape, hyper_coding,
     )
 
 
-class _PendingEncode(NamedTuple):
-    """One image's enqueued device encode: the buffer's fetch, and what a
-    relaunch at larger caps needs."""
-    fetch: _Fetch
-    lanes: tuple    # (y symbols, y indices, z symbols, z indices), (P, L)
-    bits: torch.Tensor
-    caps: tuple     # (y spill, y events, z spill, z events)
+def _split_streams(fetched: np.ndarray, jobs):
+    """A fetched encode buffer -> the uint32 words [counts (3), stream (2 L
+    + spill_cap)] of each job, and the words after them."""
+    words, parts, at = fetched.view(np.uint32), [], 0
+    for job in jobs:
+        n = 3 + 2 * job.sym_l.shape[1] + job.spill_cap
+        parts.append(words[at:at + n])
+        at += n
+    return parts, words[at:]
+
+
+class _StagedEncode(NamedTuple):
+    """One image's device work up to its symbols, enqueued: the y and z
+    jobs of the encode kernel at the default caps, and the Shannon bits."""
+    jobs: tuple          # (y EncodeJob, z EncodeJob)
+    bits: torch.Tensor   # int32 view of float32 (hyperlatent, latent)
     z_chw: tuple
-    y_chw: tuple
+    y_channels: int
 
 
 class Codec:
@@ -147,22 +158,20 @@ class Codec:
                                         dtype=torch.float32,
                                         device=self.device)
         self._tables_built = False
-        self._enc_tables = None   # (y, z) EncodeTables on the device
-        self._dec_tables = None   # y DeviceTables on the device
-        # Device encodes that overran a buffer's default cap and were
-        # launched again with larger buffers (compress and compress_many).
+        self._rans_tables = None  # (y, z) RansTables on the device
+        # Images whose device encode overran a buffer's default cap and
+        # were launched again with larger buffers (compress and
+        # compress_many).
         self.device_relaunches = 0
 
     def build_tables(self):
         """Build the hyperlatent probability tables (once per model) and
         ship both coders' tables to the device."""
         self.factorized.build_tables()
-        y, z = self.conditional.tables, self.factorized.tables
-        self._enc_tables = tuple(
-            encode_tables(t.cdf, t.cdf_length, t.cdf_offset, self.device)
-            for t in (y, z))
-        self._dec_tables = build_device_tables(
-            y.cdf, y.cdf_length, y.cdf_offset, y.inverse).to(self.device)
+        self._rans_tables = tuple(
+            rans_tables(t.cdf, t.cdf_length, t.cdf_offset, t.precision,
+                        inverse=t.inverse).to(self.device)
+            for t in (self.conditional.tables, self.factorized.tables))
         self._tables_built = True
 
     def _model_input(self, x, shape_bucket: Optional[int] = None
@@ -231,65 +240,68 @@ class Codec:
 
     @_codec_numerics
     @torch.inference_mode()
-    def _enqueue_device_compress(self, x: torch.Tensor) -> _PendingEncode:
-        """Enqueue the device encode of one model input: front -> the one
-        shared synth_stats -> latent symbols -> the rANS kernels of y and z,
-        at the default caps. Blocks on nothing."""
+    def _stage_device_compress(self, x: torch.Tensor) -> _StagedEncode:
+        """Enqueue one model input's device work up to the symbols: front
+        -> the one shared synth_stats -> latent symbols, laid out for the
+        encode kernel. Blocks on nothing."""
         y, z_sym, hyper_bits = self.model.compress_front(x)
         mu, sigma, idx = self.model.synth_stats(z_sym, self.scale_table)
         y_sym, latent_bits = self.model.latent_symbols(y, mu, sigma)
         (_, cy, hy, wy), (_, cz, hz, wz) = y_sym.shape, z_sym.shape
         z_idx = torch.arange(cz, dtype=torch.int32, device=x.device)
-        lanes = (_lanes(y_sym), _lanes(idx), _lanes(z_sym),
-                 z_idx.expand(hz * wz, cz).contiguous())
+        y_tables, z_tables = self._rans_tables
+        jobs = (EncodeJob(_lanes(y_sym), _lanes(idx), y_tables,
+                          *default_caps(hy * wy, cy)),
+                EncodeJob(_lanes(z_sym), z_idx.expand(hz * wz, cz).contiguous(),
+                          z_tables, *default_caps(hz * wz, cz, Z_SPILL_BITS)))
         bits = torch.stack([hyper_bits, latent_bits]).float().view(torch.int32)
-        caps = (*default_caps(hy * wy, cy),
-                *default_caps(hz * wz, cz, Z_SPILL_BITS))
-        return _PendingEncode(self._launch_encode(lanes, bits, caps), lanes,
-                              bits, caps, (cz, hz, wz), (cy, hy, wy))
+        return _StagedEncode(jobs, bits, (cz, hz, wz), cy)
 
+    @staticmethod
     @torch.inference_mode()
-    def _launch_encode(self, lanes, bits, caps) -> _Fetch:
-        """The rANS kernels of y and z at `caps` (y spill, y events, z
-        spill, z events), and the enqueued fetch of one packed int32 buffer:
-        [y counts (3), z counts (3), bits (2, float32), y heads, z heads,
-        y lens, z lens, y spill, z spill], not the symbol planes."""
-        y_tables, z_tables = self._enc_tables
-        y_out = encode_scan(lanes[0], lanes[1], y_tables, caps[0], caps[1])
-        z_out = encode_scan(lanes[2], lanes[3], z_tables, caps[2], caps[3])
-        return _Fetch(torch.cat([
-            y_out[3], z_out[3], bits, y_out[0].reshape(-1),
-            z_out[0].reshape(-1), y_out[2], z_out[2], y_out[1], z_out[1]]))
+    def _encode(jobs, extra=()) -> _Fetch:
+        """One launch of the encode kernel over `jobs` and the enqueued
+        fetch of one int32 buffer: [counts (3), stream (2 L + spill_cap)]
+        per job, then the `extra` tensors."""
+        outs = encode_scan_many(jobs)
+        return _Fetch(torch.cat([t for stream, _, counts in outs
+                                 for t in (counts, stream)] + list(extra)))
 
-    def _finish_device_compress(self, pending: _PendingEncode, spatial_shape
-                                ) -> CompressionOutput:
-        """Wait for the fetched buffer and assemble the streams. A stream
-        that overran its buffers is coded again on the device with caps at
-        the demand the kernels reported (writes past a cap are dropped but
-        counted), so the second launch writes every word."""
-        (cz, hz, wz), (cy, hy, wy) = pending.z_chw, pending.y_chw
-        words = pending.fetch.result().view(np.uint32)
-        caps = pending.caps
-        demand = tuple(int(v) for v in words[[0, 1, 3, 4]])
-        if any(d > c for d, c in zip(demand, caps)):
-            self.device_relaunches += 1
-            caps = tuple(max(d, c) for d, c in zip(demand, caps))
-            words = self._launch_encode(pending.lanes, pending.bits,
-                                        caps).result().view(np.uint32)
-        y_s, y_e, y_bad, z_s, z_e, z_bad = (int(v) for v in words[:6])
-        if y_bad or z_bad:
-            raise RuntimeError(f"device encode read {y_bad + z_bad} CDF row "
-                               f"indices outside the tables")
-        hyper_bits, latent_bits = (float(v) for v in words[6:8].view(
-            np.float32))
-        y_sp, y_le, z_sp, z_le = caps
-        sizes = (2 * cy, 2 * cz, y_le, z_le, y_sp, z_sp)
-        y_heads, z_heads, y_lens, z_lens, y_spill, z_spill = np.split(
-            words[8:], np.cumsum(sizes)[:-1])
-        return _output(assemble_stream(z_heads, z_spill, z_lens, z_s, z_e),
-                       assemble_stream(y_heads, y_spill, y_lens, y_s, y_e),
-                       (hz, wz), spatial_shape, (cz, 1, 1), (cy, 1, 1), 1,
-                       hyper_bits, latent_bits)
+    def _device_compress(self, staged, spatial_shapes) -> list:
+        """The y and z streams of every staged image in one encode launch.
+        The streams that overran their buffers are coded again, in one
+        more launch, with caps at the demand the kernel reported (writes
+        past a cap are dropped but counted), so it writes every word."""
+        jobs = [job for item in staged for job in item.jobs]
+        streams, bits = _split_streams(self._encode(
+            jobs, [item.bits for item in staged]).result(), jobs)
+        bits = bits.view(np.float32).reshape(-1, 2)
+        overran = [k for k, (w, job) in enumerate(zip(streams, jobs))
+                   if w[0] > job.spill_cap or w[1] > job.lens_cap]
+        if overran:
+            self.device_relaunches += len({k // 2 for k in overran})
+            again = [jobs[k]._replace(
+                spill_cap=max(int(streams[k][0]), jobs[k].spill_cap),
+                lens_cap=max(int(streams[k][1]), jobs[k].lens_cap))
+                for k in overran]
+            for k, words in zip(overran, _split_streams(
+                    self._encode(again).result(), again)[0]):
+                streams[k] = words
+        bad = sum(int(w[2]) for w in streams)
+        if bad:
+            raise RuntimeError(f"device encode read {bad} CDF row indices "
+                               f"outside the tables")
+        encoded = [w[3:3 + 2 * job.sym_l.shape[1] + int(w[0])].copy()
+                   for w, job in zip(streams, jobs)]
+        outputs = []
+        for i, (item, spatial_shape) in enumerate(zip(staged, spatial_shapes)):
+            cz, hz, wz = item.z_chw
+            hyper_bits, latent_bits = (float(b) for b in bits[i])
+            outputs.append(_output(
+                encoded[2 * i + 1], encoded[2 * i], (hz, wz), spatial_shape,
+                (cz, 1, 1), (item.y_channels, 1, 1), 1, hyper_bits,
+                latent_bits))
+        return outputs
 
     def compress(self, x, shape_bucket: Optional[int] = None,
                  device_encode: Optional[bool] = None) -> CompressionOutput:
@@ -305,16 +317,16 @@ class Codec:
         spatial_shape = tuple(int(s) for s in np.shape(x)[1:3])
         x = self._model_input(x, shape_bucket)
         if device_encode and self._use_device_encode(x, device_encode):
-            return self._finish_device_compress(
-                self._enqueue_device_compress(x), spatial_shape)
+            return self._device_compress([self._stage_device_compress(x)],
+                                         [spatial_shape])[0]
         return self._host_compress(x, spatial_shape)
 
     def compress_many(self, images, shape_bucket: Optional[int] = None,
                       device_encode: Optional[bool] = None) -> list:
         """Batch compression. On a CUDA codec every batch-1 image takes the
-        device encoder, and its device work is enqueued before the host
-        waits for the first image's buffer, so the card codes later images
-        while the host assembles earlier ones. An image of a larger batch
+        device encoder: each image's device work is enqueued, then the y
+        and z streams of all of them are coded in one launch and fetched in
+        one buffer, the streams whole. An image of a larger batch
         takes the host coder, as in the JAX package: its stream's lanes are
         every (channel, pixel) of a position, a layout the device coders do
         not have. device_encode: True takes the device encoder on any
@@ -327,13 +339,17 @@ class Codec:
             spatial_shape = tuple(int(s) for s in np.shape(image)[1:3])
             x = self._model_input(image, shape_bucket)
             if self._use_device_encode(x, device_encode):
-                staged.append((spatial_shape, self._enqueue_device_compress(x)))
+                staged.append((spatial_shape, self._stage_device_compress(x)))
             else:
                 staged.append((spatial_shape, x))
-        return [self._finish_device_compress(item, spatial_shape)
-                if isinstance(item, _PendingEncode)
+        on_device = [k for k, (_, item) in enumerate(staged)
+                     if isinstance(item, _StagedEncode)]
+        results = dict(zip(on_device, self._device_compress(
+            [staged[k][1] for k in on_device],
+            [staged[k][0] for k in on_device]) if on_device else []))
+        return [results[k] if k in results
                 else self._host_compress(item, spatial_shape)
-                for spatial_shape, item in staged]
+                for k, (spatial_shape, item) in enumerate(staged)]
 
     # ------------------------------------------------------------------ #
     # Decoding
@@ -385,18 +401,23 @@ class Codec:
 
     @_codec_numerics
     @torch.inference_mode()
-    def _device_decode_u8(self, out: CompressionOutput):
-        """Enqueue one image's device decode: host rANS of z, the stream's
-        upload, the shared synth_stats, the decode kernel, `generate` to
-        uint8. Returns (NHWC uint8, the kernel's count of bad indices),
-        both on the device; blocks on nothing."""
-        _, mu, idx = self._hyper_stats(out)
-        y_sym, bad = decode_scan(words_tensor(out.latents_encoded,
-                                              self.device),
-                                 _lanes(idx), self._dec_tables)
-        _, cy, hy, wy = idx.shape
-        y_hat = y_sym.view(1, hy, wy, cy).permute(0, 3, 1, 2).float() + mu
-        return self._generate(y_hat, out.spatial_shape, True), bad
+    def _device_decode_u8(self, outs):
+        """Enqueue the device decode of a batch of payloads: per image the
+        host rANS of z, the stream's upload and the shared synth_stats;
+        the y streams of all of them in one decode launch; per image
+        `generate` to uint8. Returns (NHWC uint8 images, the kernel's counts
+        of bad indices), all on the device; blocks on nothing."""
+        stats = [self._hyper_stats(o) for o in outs]
+        decoded = decode_scan_many([
+            DecodeJob(words_tensor(o.latents_encoded, self.device),
+                      _lanes(idx), self._rans_tables[0])
+            for o, (_, _, idx) in zip(outs, stats)])
+        imgs = []
+        for o, (_, mu, idx), (y_sym, _) in zip(outs, stats, decoded):
+            _, cy, hy, wy = idx.shape
+            y_hat = y_sym.view(1, hy, wy, cy).permute(0, 3, 1, 2).float() + mu
+            imgs.append(self._generate(y_hat, o.spatial_shape, True))
+        return imgs, torch.cat([bad for _, bad in decoded])
 
     @staticmethod
     def _check_bad(bad: np.ndarray) -> None:
@@ -428,7 +449,7 @@ class Codec:
         if not self._tables_built:
             self.build_tables()
         if self._check_device_decode([out], as_uint8, device_decode):
-            img, bad = self._device_decode_u8(out)
+            (img,), bad = self._device_decode_u8([out])
             img, bad = _Fetch(img), _Fetch(bad)
             self._check_bad(bad.result())
             return img.result()
@@ -438,26 +459,25 @@ class Codec:
                         as_numpy: bool = True,
                         device_decode: Optional[bool] = None) -> list:
         """Batch decompression. On the device decoder (chosen as in
-        `decompress`) each image's decode
-        and its copy to the host are enqueued before the host waits for the
-        first. as_numpy=False returns NHWC tensors on the codec's device
-        (after one wait for the kernels' index checks)."""
+        `decompress`) the y streams of all payloads are decoded in one
+        launch, and every image's generation and copy to the host are
+        enqueued before the host waits for the first. as_numpy=False
+        returns NHWC tensors on the codec's device (after one wait for the
+        kernel's index checks)."""
         if not self._tables_built:
             self.build_tables()
         if not self._check_device_decode(outs, as_uint8, device_decode):
             imgs = [self._host_decode(o, as_uint8) for o in outs]
             return [i.cpu().numpy() for i in imgs] if as_numpy else imgs
+        if not outs:
+            return []
+        imgs, bad = self._device_decode_u8(outs)
         if not as_numpy:
-            pending = [self._device_decode_u8(o) for o in outs]
-            self._check_bad(_Fetch(torch.cat([b for _, b in pending])).result())
-            return [img for img, _ in pending]
-        fetches = [tuple(_Fetch(t) for t in self._device_decode_u8(o))
-                   for o in outs]
-        results = []
-        for img, bad in fetches:
-            self._check_bad(bad.result())
-            results.append(img.result())
-        return results
+            self._check_bad(_Fetch(bad).result())
+            return imgs
+        fetches = [_Fetch(img) for img in imgs]
+        self._check_bad(_Fetch(bad).result())
+        return [img.result() for img in fetches]
 
     def compress_file(self, x, path: str) -> Tuple[float, float]:
         """Compress to a `.hfc` file; returns (actual_bpp, theoretical_bpp)."""

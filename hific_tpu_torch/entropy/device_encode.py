@@ -2,33 +2,39 @@
 `csrc/rans_device.cu` and its plain PyTorch version.
 
 Counterpart of the JAX package's `entropy/device_encode.py` (`encode_scan`,
-an XLA scan with uint32-pair heads and long division). Both write bit for
-bit the v1 stream of `coding.py` and the native coder, so either decoder
-reads it. Positions are walked back to front. Each push first spills the
-low words of the lanes whose head h >= freq << (63 - precision), in lane
-order, at the spill cursor, and records that event's count; then
-h = (h / freq) << precision + h % freq + start. A position's escape pushes
-(freq 1 in a 4-bit identity CDF, spill threshold 2^59) come before its main
-push: nibbles from high to low, then width markers from last to first, in
-the closed forms the JAX package derived:
+an XLA scan with uint32-pair heads and long division, and `assemble_stream`,
+its host flatten). Both write bit for bit the v1 stream of `coding.py` and
+the native coder, so either decoder reads it. Positions are walked back to
+front. Each push first spills the low words of the lanes whose head
+h >= freq << (63 - precision), in lane order, and records that event's
+count; then h = (h / freq) << precision + h % freq + start. A position's
+escape pushes (freq 1 in a 4-bit identity CDF, spill threshold 2^59) come
+before its main push: nibbles from high to low, then width markers from last
+to first, in the closed forms the JAX package derived:
     marker round k:  clamp(width - 15 k, 0, 15)
     nibble round j:  width > 0 ? nibble(min(j, width - 1)) : last marker
-Writes past a buffer's capacity are dropped but counted, so the caller sees
-the true demand and relaunches with buffers that hold it (`codec.py`).
+The stream is [heads hi | heads lo | tail], the tail holding the spilled
+words chunk by chunk, newest push event first, lane order kept within a
+chunk. Writes past a buffer's capacity are dropped but counted, so the
+caller sees the true demand and relaunches with buffers that hold it
+(`codec.py`).
 
-`encode_scan` launches the kernel for CUDA tensors and runs the plain
-version, `encode_scan_reference`, for CPU tensors. The kernel maps symbols
-to pushes itself; the plain version maps them with `prepare_encode`, the
-JAX package's vectorized gathers and closed forms. `assemble_stream`
-flattens the result on the host, newest spill chunk first.
+`encode_scan_many` codes a batch of streams, each with its own positions,
+lanes, tables and capacities: one kernel launch for CUDA tensors, the plain
+version, `encode_scan_reference`, stream by stream for CPU tensors.
+`encode_scan` is a batch of one. The kernel maps symbols to pushes itself;
+the plain version maps them with `prepare_encode`, the JAX package's
+vectorized gathers and closed forms, and lays out the tail with
+`assemble_stream`.
 """
 
-from typing import NamedTuple, Tuple
+from typing import List, NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 from hific_tpu_torch.entropy import device_rans
+from hific_tpu_torch.entropy.rans_tables import RansTables
 
 RANS_L = 1 << 31
 OVERFLOW_WIDTH = 4
@@ -50,28 +56,15 @@ def default_caps(p: int, lanes: int,
     return p * lanes * bits_per_symbol // 32 + 4096, 4 * p + 64
 
 
-class EncodeTables(NamedTuple):
-    """CDF rows for the encoder, int32, on one device."""
-    cdf: torch.Tensor         # [rows, max_len]
-    cdf_length: torch.Tensor  # [rows]
-    cdf_offset: torch.Tensor  # [rows]
-
-
-def encode_tables(cdf, cdf_length, cdf_offset, device=None) -> EncodeTables:
-    """Checked host tables -> `EncodeTables` on `device`. Every row must
-    hold a CDF of at most 16 bits with 3 <= cdf_length <= the row width (at
-    least one tracked symbol beside the overflow code, so no frequency
-    reaches 2^16), which keeps the kernel's gathers inside the table."""
-    cdf = np.asarray(cdf)
-    cdf_length = np.asarray(cdf_length)
-    rows, max_len = cdf.shape
-    if (cdf_length.shape != (rows,) or np.asarray(cdf_offset).shape != (rows,)
-            or cdf_length.min() < 3 or cdf_length.max() > max_len
-            or cdf.min() < 0 or cdf.max() > 1 << 16):
-        raise ValueError("not a table of CDF rows of at most 16 bits")
-    return EncodeTables(*(torch.from_numpy(
-        np.ascontiguousarray(a, np.int64).astype(np.int32)).to(device)
-        for a in (cdf, cdf_length, cdf_offset)))
+class EncodeJob(NamedTuple):
+    """One stream of a batch: int32 (P, L) symbols and CDF rows, the
+    tables (`rans_tables(...).to(device)`) and the tail's and the event
+    counts' capacities."""
+    sym_l: torch.Tensor
+    idx_l: torch.Tensor
+    tables: RansTables
+    spill_cap: int
+    lens_cap: int
 
 
 class EncodePlan(NamedTuple):
@@ -91,7 +84,7 @@ def _wrap32(x: torch.Tensor) -> torch.Tensor:
     return ((x + (1 << 31)) & WORD) - (1 << 31)
 
 
-def prepare_encode(sym_l, idx_l, tables: EncodeTables) -> EncodePlan:
+def prepare_encode(sym_l, idx_l, tables: RansTables) -> EncodePlan:
     """Vectorized symbols -> pushes (`coding.py:_prepare` and the escape
     rounds' closed forms), as the JAX package's `prepare_encode` computes
     them in int32."""
@@ -119,40 +112,33 @@ def prepare_encode(sym_l, idx_l, tables: EncodeTables) -> EncodePlan:
     return EncodePlan(starts, freqs, of, widths, payload, max_w, n_marker)
 
 
-class _Buffers:
-    """The plain version's spill and event buffers and their cursors."""
+class _Spills:
+    """The plain version's push events: each event's spilled words (lane
+    order) and count, in push order, none dropped."""
 
-    def __init__(self, spill_cap: int, lens_cap: int, device):
-        self.spill = torch.zeros(spill_cap, dtype=torch.long, device=device)
-        self.lens = torch.zeros(lens_cap, dtype=torch.long, device=device)
-        self.s_cur = 0
-        self.e_cur = 0
+    def __init__(self):
+        self.chunks: List[torch.Tensor] = []
+        self.lens: List[int] = []
 
     def push(self, h, mask, x_max, starts, freqs, precision: int):
         """One push event on `mask` lanes: spills in lane order, then the
-        state update. Writes past a capacity are dropped and counted."""
+        state update."""
         sp = mask & (h >= x_max)
-        n = int(sp.sum())
-        if n:
-            pos = self.s_cur + torch.cumsum(sp, 0) - 1
-            keep = sp & (pos < self.spill.shape[0])
-            self.spill[pos[keep]] = h[keep] & WORD
-            h = torch.where(sp, h >> 32, h)
-        if self.e_cur < self.lens.shape[0]:
-            self.lens[self.e_cur] = n
-        self.s_cur += n
-        self.e_cur += 1
+        self.chunks.append(h[sp] & WORD)
+        self.lens.append(int(sp.sum()))
+        h = torch.where(sp, h >> 32, h)
         pushed = ((h // freqs) << precision) + h % freqs + starts
         return torch.where(mask, pushed, h)
 
 
-def encode_scan_reference(sym_l, idx_l, tables: EncodeTables,
-                          spill_cap: int, lens_cap: int,
-                          precision: int = 16):
-    """The plain version of the kernel; returns what `encode_scan` does."""
+def encode_scan_reference(sym_l, idx_l, tables: RansTables, spill_cap: int,
+                          lens_cap: int):
+    """The plain version of the kernel for one stream; returns what
+    `encode_scan` does."""
     p, lanes = sym_l.shape
     device = sym_l.device
-    buf = _Buffers(spill_cap, lens_cap, device)
+    precision = tables.precision
+    spills = _Spills()
     plan = prepare_encode(sym_l, idx_l, tables)
     n_marker, max_w = plan.n_marker.tolist(), plan.max_w.tolist()
     h = torch.full((lanes,), RANS_L, dtype=torch.long, device=device)
@@ -166,76 +152,102 @@ def encode_scan_reference(sym_l, idx_l, tables: EncodeTables,
                 jj = torch.clamp(widths - 1, max=j).clamp_min(0)
                 nib = (payload >> (4 * jj)) & MAX_OVERFLOW
                 v = torch.where(widths > 0, nib, last_marker)
-                h = buf.push(h, of, X_MAX_ESCAPE, v, one, OVERFLOW_WIDTH)
+                h = spills.push(h, of, X_MAX_ESCAPE, v, one, OVERFLOW_WIDTH)
             for k in range(n_marker[i] - 1, -1, -1):
                 m = (widths - 15 * k).clamp(0, 15)
-                h = buf.push(h, of, X_MAX_ESCAPE, m, one, OVERFLOW_WIDTH)
-        h = buf.push(h, every, plan.freqs[i] << (63 - precision),
-                     plan.starts[i], plan.freqs[i], precision)
-    heads = torch.stack([h >> 32, h & WORD]).to(torch.int64)
-    counts = torch.tensor([buf.s_cur, buf.e_cur, 0], dtype=torch.long)
-    return tuple(_wrap32(t).to(torch.int32).to(device)
-                 for t in (heads, buf.spill, buf.lens, counts))
+                h = spills.push(h, of, X_MAX_ESCAPE, m, one, OVERFLOW_WIDTH)
+        h = spills.push(h, every, plan.freqs[i] << (63 - precision),
+                        plan.starts[i], plan.freqs[i], precision)
+    n_spilled, n_events = sum(spills.lens), len(spills.lens)
+    spill = (torch.cat(spills.chunks) if spills.chunks
+             else torch.zeros(0, dtype=torch.long)).cpu().numpy()
+    whole = assemble_stream(torch.stack([h >> 32, h & WORD]).cpu().numpy(),
+                            spill, np.asarray(spills.lens, np.int64),
+                            n_spilled, n_events)
+    stream = np.zeros(2 * lanes + spill_cap, np.uint32)
+    kept = whole[:len(stream)]
+    stream[:len(kept)] = kept
+    lens = np.zeros(lens_cap, np.uint32)
+    kept = np.asarray(spills.lens[:lens_cap], np.uint32)
+    lens[:len(kept)] = kept
+    counts = np.asarray([n_spilled, n_events, 0], np.uint32)
+    return tuple(torch.from_numpy(a.view(np.int32)).to(device)
+                 for a in (stream, lens, counts))
 
 
-def encode_scan(sym_l, idx_l, tables: EncodeTables, spill_cap: int,
-                lens_cap: int, precision: int = 16):
-    """Encode laid-out (P, L) int32 symbols against the CDF rows idx_l.
+def encode_scan_many(jobs: List[EncodeJob]):
+    """Encode a batch of laid-out (P, L) int32 symbol planes, each against
+    its CDF rows.
 
-    Returns int32 tensors of uint32 bits: (heads [2, L] (hi row, lo row),
-    spill [spill_cap], lens [lens_cap], counts [3]): counts holds the spill
-    and event cursors, which may exceed the caps (the caller MUST check
-    them: `assemble_stream` reads the buffers only up to them), and the
-    number of indices outside the tables' rows, which the kernel reads as
-    row 0 (always 0 from the plain version, which raises on them instead).
-    Relaunched with caps at least the reported cursors, it writes every
-    word. CUDA tensors launch the kernel; CPU tensors run the plain version.
-    """
-    p, lanes = _check(sym_l, idx_l, tables, precision)
-    if spill_cap < 1 or lens_cap < 1:
-        raise ValueError("spill_cap and lens_cap must be positive")
-    device = sym_l.device
+    Returns, per job, int32 tensors of uint32 bits: (stream [2 L +
+    spill_cap]: heads hi (L), heads lo (L), then the tail, newest chunk
+    first, zero past its end; lens [lens_cap]: each push event's spill
+    count in push order; counts [3]: the tail's length and the event count,
+    which may exceed the caps (the caller MUST check them: past a cap the
+    buffers hold a prefix), and the number of indices outside the tables'
+    rows, which the kernel reads as row 0 (always 0 from the plain version,
+    which raises on them instead)). Relaunched with caps at least the
+    reported counts, a job writes every word. CUDA tensors launch the kernel
+    once for the batch; CPU tensors run the plain version."""
+    jobs = [EncodeJob(*job) for job in jobs]
+    if not jobs:
+        return []
+    device = jobs[0].sym_l.device
+    for job in jobs:
+        _check(job, device)
+    if len({job.tables.precision for job in jobs}) != 1:
+        raise ValueError("one precision for every stream of a batch")
     if device.type == "cpu":
-        rows = tables.cdf.shape[0]
-        if idx_l.numel() and (int(idx_l.min()) < 0
-                              or int(idx_l.max()) >= rows):
-            raise ValueError(f"CDF row index outside [0, {rows})")
-        return encode_scan_reference(sym_l, idx_l, tables, spill_cap,
-                                     lens_cap, precision)
+        for job in jobs:
+            rows = job.tables.rows
+            if job.idx_l.numel() and (int(job.idx_l.min()) < 0
+                                      or int(job.idx_l.max()) >= rows):
+                raise ValueError(f"CDF row index outside [0, {rows})")
+        return [encode_scan_reference(*job) for job in jobs]
     if device.type != "cuda":
         raise ValueError(f"no encode_scan for device {device}")
-    heads = torch.empty((2, lanes), dtype=torch.int32, device=device)
-    spill = torch.zeros(spill_cap, dtype=torch.int32, device=device)
-    lens = torch.zeros(lens_cap, dtype=torch.int32, device=device)
-    counts = torch.zeros(3, dtype=torch.int32, device=device)
-    device_rans.ENCODE_KERNEL.launch(sym_l, idx_l, tables, precision, heads,
-                                     spill, lens, counts)
-    return heads, spill, lens, counts
+    outs = [(torch.zeros(2 * job.sym_l.shape[1] + job.spill_cap,
+                         dtype=torch.int32, device=device),
+             torch.zeros(job.lens_cap, dtype=torch.int32, device=device),
+             torch.zeros(3, dtype=torch.int32, device=device))
+            for job in jobs]
+    device_rans.ENCODE_KERNEL.launch(jobs, outs)
+    return outs
 
 
-def _check(sym_l, idx_l, tables: EncodeTables, precision: int):
-    if not 1 <= precision <= 16:
-        raise ValueError(f"precision must lie in [1, 16], got {precision}")
+def encode_scan(sym_l, idx_l, tables: RansTables, spill_cap: int,
+                lens_cap: int):
+    """`encode_scan_many` of one stream: (stream, lens, counts)."""
+    return encode_scan_many([EncodeJob(sym_l, idx_l, tables, spill_cap,
+                                       lens_cap)])[0]
+
+
+def _check(job: EncodeJob, device) -> None:
+    sym_l, idx_l, tables = job.sym_l, job.idx_l, job.tables
     if (sym_l.dim() != 2 or sym_l.shape != idx_l.shape
             or sym_l.dtype != torch.int32 or idx_l.dtype != torch.int32):
         raise ValueError("sym_l and idx_l must be int32 (positions, lanes) "
                          "tensors of one shape")
-    p, lanes = sym_l.shape
+    lanes = sym_l.shape[1]
     if not 1 <= lanes <= device_rans.MAX_LANES:
         raise ValueError(f"1 to {device_rans.MAX_LANES} lanes, got {lanes}")
-    if not isinstance(tables, EncodeTables):
-        raise ValueError("tables must come from encode_tables()")
+    if job.spill_cap < 1 or job.lens_cap < 1:
+        raise ValueError("spill_cap and lens_cap must be positive")
+    if not isinstance(tables, RansTables):
+        raise ValueError("tables must come from rans_tables()")
     for name, t in (("sym_l", sym_l), ("idx_l", idx_l),
-                    *zip(EncodeTables._fields, tables)):
-        if t.device != sym_l.device or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous on {sym_l.device}")
-    return p, lanes
+                    ("tables.blob", tables.blob), ("tables.cdf", tables.cdf)):
+        if (not isinstance(t, torch.Tensor) or t.device != device
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous tensor on "
+                             f"{device}")
 
 
 def assemble_stream(heads, spill, lens, spill_count: int,
                     event_count: int) -> np.ndarray:
     """Host flatten: [head_hi | head_lo | spill chunks NEWEST first] (lane
-    order kept within a chunk), exactly `ans.flatten_message`."""
+    order kept within a chunk), exactly `ans.flatten_message`; the plain
+    version of the kernel's scatter."""
     heads = np.asarray(heads).astype(np.uint32).reshape(-1)
     spill = np.asarray(spill).astype(np.uint32)[:spill_count]
     lens = np.asarray(lens).astype(np.uint32).astype(np.int64)[:event_count]

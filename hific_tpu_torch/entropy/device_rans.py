@@ -2,9 +2,14 @@
 
 The library is built with plain nvcc for sm_90a at first use into
 `hific_tpu_torch/_build/` (`native_build.py`); a failed build raises. Each
-kernel keeps a count of its launches, so that a run can show which path
-went through it. `device_encode.py` and `device_decode.py` check their
-arguments and call these; the launchers check only what ctypes needs.
+entry point codes a batch of streams in one call, described by a row of
+int64 fields per stream (the `EncodeStream` / `DecodeStream` structs of the
+source), which the launcher packs in pinned memory, copies to the device on
+the current stream and passes with its host copy; it allocates the
+encoder's scratch. Each kernel keeps a count of its launches, one per call,
+so that a run can show which path went through it. `device_encode.py` and
+`device_decode.py` check their arguments and call these; the launchers
+check only what ctypes needs.
 """
 
 import ctypes
@@ -18,12 +23,11 @@ from hific_tpu_torch import native_build
 SOURCE = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc",
                       "rans_device.cu")
 MAX_LANES = 1024  # kMaxLanes in rans_device.cu: one thread per lane
+# kMaxEventsPerPosition: 1 + 8 nibble rounds + 1 marker round.
+MAX_EVENTS_PER_POSITION = 10
 
-_P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-_ENCODE_ARGTYPES = [_P, _P, _I64, _INT, _P, _INT, _P, _P, _INT, _INT,
-                    _P, _P, _I64, _P, _I64, _P, _P]
-_DECODE_ARGTYPES = [_P, _I64, _P, _I64, _INT, _P, _P, _P, _INT, _INT,
-                    _P, _P, _P]
+_P, _INT = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = [_P, _P, _INT, _INT, _P]
 
 
 class RansLibrary:
@@ -41,11 +45,10 @@ class RansLibrary:
                     "rans_device", [SOURCE],
                     [native_build.nvcc()] + native_build.NVCC_FLAGS)
                 lib = ctypes.CDLL(self.built.path)
-                for name, argtypes in (("hific_rans_encode", _ENCODE_ARGTYPES),
-                                       ("hific_rans_decode", _DECODE_ARGTYPES)):
+                for name in ("hific_rans_encode", "hific_rans_decode"):
                     fn = getattr(lib, name)
                     fn.restype = ctypes.c_int
-                    fn.argtypes = argtypes
+                    fn.argtypes = _ARGTYPES
                 self._lib = lib
             return self._lib
 
@@ -53,55 +56,97 @@ class RansLibrary:
 LIBRARY = RansLibrary()
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+def encode_descriptors(jobs, outs):
+    """The `EncodeStream` rows of a batch and the scratch they point to
+    (allocated here, on the jobs' device): per stream the plan [P], the
+    events' (ballot, warp cursor) pairs and chunk places [10 P, W], and each
+    warp's ring of spilled words [W, spill_cap + 32]."""
+    device = jobs[0].sym_l.device
+    rows, scratch, block_base = [], [], 0
+    for job, (stream, lens, counts) in zip(jobs, outs):
+        p, lanes = job.sym_l.shape
+        warps = -(-lanes // 32)
+        ring = job.spill_cap + 32
+        entries = MAX_EVENTS_PER_POSITION * p * warps
+        plan, events, base, words = (
+            torch.empty(n, dtype=torch.int32, device=device)
+            for n in (max(p, 1), max(2 * entries, 2), max(entries, 1),
+                      warps * ring))
+        scratch += [plan, events, base, words]
+        t = job.tables
+        rows.append([
+            job.sym_l.data_ptr(), job.idx_l.data_ptr(), t.blob.data_ptr(),
+            plan.data_ptr(), events.data_ptr(), base.data_ptr(),
+            words.data_ptr(), stream.data_ptr(), lens.data_ptr(),
+            counts.data_ptr(), p, lanes, t.rows, t.encode_words, t.cdf_word,
+            job.spill_cap, job.lens_cap, ring, block_base])
+        block_base += warps
+    return rows, scratch
 
 
-def _raise_on(err: int, what: str, p: int, lanes: int) -> None:
+def decode_descriptors(jobs, outs, bad):
+    """The `DecodeStream` rows of a batch."""
+    rows = []
+    for k, (job, out) in enumerate(zip(jobs, outs)):
+        t = job.tables
+        rows.append([
+            job.stream.data_ptr(), job.idx_l.data_ptr(), t.blob.data_ptr(),
+            out.data_ptr(), bad.data_ptr() + 4 * k, job.stream.shape[0],
+            job.idx_l.shape[0], job.idx_l.shape[1], t.rows, t.blob.shape[0],
+            t.cdf_word, t.bucket_word, t.shift])
+    return rows
+
+
+def _launch(fn, rows, device, precision: int, what: str) -> None:
+    """Descriptors to the device (from pinned memory, on the current
+    stream), then the entry point; raises on its CUDA error."""
+    host = torch.tensor(rows, dtype=torch.int64).pin_memory()
+    dev = host.to(device, non_blocking=True)
+    with torch.cuda.device(device):
+        err = fn(host.data_ptr(), dev.data_ptr(), len(rows), precision,
+                 torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
+        shapes = [(r[10], r[11]) if what == "rans_encode" else (r[6], r[7])
+                  for r in rows]
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} "
-                           f"(P={p}, L={lanes})")
+                           f"((P, L) of the streams: {shapes})")
 
 
 class RansEncodeKernel:
-    """`rans_encode`: one thread block per stream, one thread per lane."""
+    """`rans_encode`: a plan grid (a warp per position), a lane grid (a
+    warp per block, a thread per lane), an offsets grid (a block per
+    stream) and a scatter grid; one call for a batch of streams."""
 
     def __init__(self):
         self.launches = 0
 
-    def launch(self, sym_l, idx_l, tables, precision: int, heads, spill,
-               lens, counts) -> None:
+    def launch(self, jobs, outs) -> None:
+        """jobs: `device_encode.EncodeJob`s; outs: their (stream, lens,
+        counts) tensors, zeroed."""
         lib = LIBRARY.load()
-        p, lanes = sym_l.shape
-        with torch.cuda.device(sym_l.device):
-            err = lib.hific_rans_encode(
-                sym_l.data_ptr(), idx_l.data_ptr(), p, lanes,
-                tables.cdf.data_ptr(), tables.cdf.shape[1],
-                tables.cdf_length.data_ptr(), tables.cdf_offset.data_ptr(),
-                tables.cdf.shape[0], precision, heads.data_ptr(),
-                spill.data_ptr(), spill.shape[0], lens.data_ptr(),
-                lens.shape[0], counts.data_ptr(), _stream(sym_l))
-        _raise_on(err, "rans_encode", p, lanes)
+        # The scratch tensors go back to the caching allocator when this
+        # returns; their memory is reused only by later work on the stream.
+        rows, scratch = encode_descriptors(jobs, outs)
+        _launch(lib.hific_rans_encode, rows, jobs[0].sym_l.device,
+                jobs[0].tables.precision, "rans_encode")
+        del scratch
         self.launches += 1
 
 
 class RansDecodeKernel:
-    """`rans_decode`: one thread block per stream, one thread per lane."""
+    """`rans_decode`: one thread block per stream, one thread per lane;
+    one call for a batch of streams."""
 
     def __init__(self):
         self.launches = 0
 
-    def launch(self, stream, idx_l, tables, precision: int, out, bad
-               ) -> None:
+    def launch(self, jobs, outs, bad) -> None:
+        """jobs: `device_decode.DecodeJob`s; outs: their (P, L) int32
+        symbols; bad: int32 [len(jobs)], zeroed."""
         lib = LIBRARY.load()
-        p, lanes = idx_l.shape
-        with torch.cuda.device(stream.device):
-            err = lib.hific_rans_decode(
-                stream.data_ptr(), stream.shape[0], idx_l.data_ptr(), p,
-                lanes, tables.t_pair.data_ptr(), tables.maxv.data_ptr(),
-                tables.offs.data_ptr(), tables.maxv.shape[0], precision,
-                out.data_ptr(), bad.data_ptr(), _stream(stream))
-        _raise_on(err, "rans_decode", p, lanes)
+        _launch(lib.hific_rans_decode, decode_descriptors(jobs, outs, bad),
+                jobs[0].stream.device, jobs[0].tables.precision,
+                "rans_decode")
         self.launches += 1
 
 

@@ -211,3 +211,34 @@ def test_many_bytes_equal_jax_and_per_image(tiny, bucket):
             r, port.decompress(out, as_uint8=True, device_decode=False))
         assert isinstance(t, torch.Tensor) and t.device == port.device
         np.testing.assert_array_equal(t.numpy(), r)
+
+
+def test_many_code_every_stream_in_one_batch(tiny, monkeypatch):
+    """compress_many of three images of three sizes makes one batched
+    encode call for all six y and z streams, and decompress_many one
+    batched decode call for the three y streams (the kernels' plain
+    versions here, the same entry points that launch once on the card);
+    the bytes equal the host coder's, the images the host decoder's."""
+    from hific_tpu_torch.entropy import device_decode, device_encode
+
+    _, port = tiny
+    images = [_u8(48, 64, seed=9), _u8(32, 80, seed=10), _u8(64, 48, seed=11)]
+    calls = []
+
+    def counted(fn):
+        def call(jobs):
+            calls.append((fn.__name__, len(jobs)))
+            return fn(jobs)
+        return call
+
+    monkeypatch.setattr(codec_module, "encode_scan_many",
+                        counted(device_encode.encode_scan_many))
+    monkeypatch.setattr(codec_module, "decode_scan_many",
+                        counted(device_decode.decode_scan_many))
+    outs = port.compress_many(images, device_encode=True)
+    recons = port.decompress_many(outs, device_decode=True)
+    assert calls == [("encode_scan_many", 6), ("decode_scan_many", 3)]
+    for x, out, r in zip(images, outs, recons):
+        assert _hfc(out) == _hfc(port.compress(x))
+        np.testing.assert_array_equal(
+            r, port.decompress(out, as_uint8=True, device_decode=False))

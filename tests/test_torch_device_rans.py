@@ -3,10 +3,11 @@ coder.
 
 The plain versions of the kernels (`encode_scan_reference`,
 `decode_scan_reference`, which `encode_scan` / `decode_scan` run for CPU
-tensors) are held byte for byte against the JAX package's `encode_scan` /
-`decode_scan` (XLA on the CPU) and against the port's host coder
-(`coding.encode_indexed` / `decode_indexed`), over the cases of the JAX
-package's `tests/test_device_encode.py` and `test_device_decode.py`. The
+tensors) are held byte for byte against the JAX package's `encode_scan` +
+`assemble_stream` / `decode_scan` (XLA on the CPU) and against the port's
+host coder (`coding.encode_indexed` / `decode_indexed`), over the cases of
+the JAX package's `tests/test_device_encode.py` and `test_device_decode.py`.
+The
 CUDA kernels run only on a card: their tests are marked `cuda`, hold each
 kernel against its plain version over the same cases, and skip here. (Flax,
 which the JAX models need, is imported inside the one test that builds
@@ -23,17 +24,9 @@ from hific_tpu.entropy import device_decode as jax_dd
 from hific_tpu.entropy import device_encode as jax_de
 from hific_tpu.entropy.coding import build_inverse_table as jax_inverse
 from hific_tpu_torch.entropy import coding, device_rans
-from hific_tpu_torch.entropy.device_decode import (
-    build_device_tables,
-    decode_scan,
-    words_tensor,
-)
-from hific_tpu_torch.entropy.device_encode import (
-    assemble_stream,
-    default_caps,
-    encode_scan,
-    encode_tables,
-)
+from hific_tpu_torch.entropy.device_decode import decode_scan, words_tensor
+from hific_tpu_torch.entropy.device_encode import default_caps, encode_scan
+from hific_tpu_torch.entropy.rans_tables import rans_tables, table_lookup
 from hific_tpu_torch.ops.maths import pmf_to_quantized_cdf
 
 PRECISION = 16
@@ -102,12 +95,13 @@ def _lay(x):
 
 
 def _port_encode(symbols, indices, tables, device="cpu", **caps):
-    t = encode_tables(*tables, device=device)
+    """(stream, lens, counts) of the port's encode_scan."""
+    t = rans_tables(*tables, precision=PRECISION).to(device)
     sym_l, idx_l = (torch.from_numpy(_lay(a)).to(device)
                     for a in (symbols, indices))
     caps = caps or dict(zip(("spill_cap", "lens_cap"),
                             default_caps(*sym_l.shape)))
-    return encode_scan(sym_l, idx_l, t, precision=PRECISION, **caps)
+    return encode_scan(sym_l, idx_l, t, **caps)
 
 
 def _jax_encode(symbols, indices, tables, **caps):
@@ -124,13 +118,9 @@ def _u32(t):
 
 
 def _port_decode(stream, indices, tables, device="cpu"):
-    cdf, lengths, offsets = tables
-    dt = build_device_tables(cdf, lengths, offsets,
-                             coding.build_inverse_table(cdf, lengths,
-                                                        PRECISION)).to(device)
+    dt = rans_tables(*tables, precision=PRECISION).to(device)
     out, bad = decode_scan(words_tensor(stream, device),
-                           torch.from_numpy(_lay(indices)).to(device), dt,
-                           PRECISION)
+                           torch.from_numpy(_lay(indices)).to(device), dt)
     assert int(bad) == 0
     _, c, h, w = indices.shape
     return out.cpu().numpy().reshape(h, w, c).transpose(2, 0, 1)[None]
@@ -138,18 +128,19 @@ def _port_decode(stream, indices, tables, device="cpu"):
 
 @pytest.mark.parametrize("name", CASES)
 def test_encode_matches_jax_and_host(name):
-    """Heads, spill words, event counts and cursors equal JAX's; the
-    assembled stream equals the host coder's."""
+    """The stream (heads, then the tail newest chunk first) equals JAX's
+    encode_scan + assemble_stream and the host coder's; event counts and
+    cursors equal JAX's."""
     symbols, indices, tables = _case(name)
-    heads, spill, lens, counts = _port_encode(symbols, indices, tables)
+    stream, lens, counts = _port_encode(symbols, indices, tables)
     hi, lo, j_spill, j_lens, s_cur, e_cur = _jax_encode(symbols, indices,
                                                         tables)
     s, e, bad = (int(v) for v in counts)
     assert (s, e, bad) == (int(s_cur), int(e_cur), 0)
-    np.testing.assert_array_equal(_u32(heads), np.stack([hi, lo]))
-    np.testing.assert_array_equal(_u32(spill)[:s], j_spill[:s])
     np.testing.assert_array_equal(_u32(lens)[:e], j_lens[:e])
-    stream = assemble_stream(_u32(heads), _u32(spill), _u32(lens), s, e)
+    stream = _u32(stream)
+    assert not stream[2 * len(hi) + s:].any()
+    stream = stream[:2 * len(hi) + s]
     host, _ = coding.encode_indexed(symbols, indices, *tables, PRECISION)
     np.testing.assert_array_equal(stream, host)
     np.testing.assert_array_equal(
@@ -200,38 +191,43 @@ def test_decode_empty_tail():
     stream, _ = coding.encode_indexed(symbols, indices, cdf, lengths,
                                       offsets, PRECISION)
     assert len(stream) == 2 * shape[1]
-    heads, spill, lens, counts = _port_encode(symbols, indices,
-                                              (cdf, lengths, offsets))
+    got, lens, counts = _port_encode(symbols, indices,
+                                     (cdf, lengths, offsets))
     assert [int(v) for v in counts] == [0, 1, 0]
-    np.testing.assert_array_equal(_u32(heads).reshape(-1), stream)
+    np.testing.assert_array_equal(_u32(got)[:2 * shape[1]], stream)
     np.testing.assert_array_equal(
         _port_decode(stream, indices, (cdf, lengths, offsets)), symbols)
 
 
 def test_encode_reports_demand_past_caps():
     """Caps of 8 spill words and 16 events: the buffers drop what does not
-    fit, the cursors report the true demand, as JAX's do."""
+    fit (the tail keeps its first 8 words, newest chunk first; lens the
+    first 16 events), the cursors report the true demand, as JAX's do."""
     rng = np.random.RandomState(4)
     cdf, lengths, offsets = _random_tables(6, rng)
     shape = (1, 8, 16, 16)
     indices = rng.randint(0, 6, size=shape).astype(np.int32)
     symbols = _random_symbols(shape, indices, lengths, offsets, rng, 0.05)
     tables = (cdf, lengths, offsets)
-    heads, spill, lens, counts = _port_encode(symbols, indices, tables,
-                                              spill_cap=8, lens_cap=16)
+    stream, lens, counts = _port_encode(symbols, indices, tables,
+                                        spill_cap=8, lens_cap=16)
     hi, lo, j_spill, j_lens, s_cur, e_cur = _jax_encode(
         symbols, indices, tables, spill_cap=8, lens_cap=16)
-    assert spill.shape == (8,) and lens.shape == (16,)
+    assert stream.shape == (2 * 8 + 8,) and lens.shape == (16,)
     assert [int(v) for v in counts] == [int(s_cur), int(e_cur), 0]
     assert int(s_cur) > 8 and int(e_cur) > 16
-    np.testing.assert_array_equal(_u32(heads), np.stack([hi, lo]))
-    np.testing.assert_array_equal(_u32(spill), j_spill)
+    np.testing.assert_array_equal(_u32(lens), j_lens)
+    whole = jax_de.assemble_stream(*_jax_encode(symbols, indices, tables))
+    np.testing.assert_array_equal(_u32(stream), whole[:2 * 8 + 8])
+    np.testing.assert_array_equal(_u32(stream)[:16], np.concatenate([hi, lo]))
 
 
 @pytest.mark.parametrize("tables", ["scale", "tiny_factorized"])
 def test_device_tables_byte_equal(tables):
-    """build_device_tables on the port's own tables equals the JAX
-    package's on its tables."""
+    """What the port's decoder reads for every (row, cum_freq) of its own
+    tables, (start << 16 | freq, symbol) through the packed rows' bucket
+    lookup, and each row's overflow code and offset, equal the JAX
+    package's device tables built from its tables, byte for byte."""
     from hific_tpu.entropy.entropy_models import (
         ConditionalEntropyModel as JaxCond)
     from hific_tpu_torch.entropy.entropy_models import (
@@ -254,8 +250,15 @@ def test_device_tables_byte_equal(tables):
             variables["params"]["hyperprior"]["hyperlatent_density"])
         port = _port_factorized(params, 16).tables
         want = _jax_factorized(params, 16).tables
-    got = build_device_tables(port.cdf, port.cdf_length, port.cdf_offset,
-                              port.inverse)
+    packed = rans_tables(port.cdf, port.cdf_length, port.cdf_offset,
+                         PRECISION)
+    rows = np.repeat(np.arange(len(port.cdf_length)), 1 << PRECISION)
+    cf = np.tile(np.arange(1 << PRECISION), len(port.cdf_length))
+    sym, start, freq = (t.numpy() for t in table_lookup(
+        packed, torch.from_numpy(rows), torch.from_numpy(cf)))
+    t_pair = np.stack([((start << 16) | freq).astype(np.uint32).view(np.int32),
+                       sym.astype(np.int32)], axis=-1)
+    got = (t_pair, packed.cdf_length - 2, packed.cdf_offset)
     ref = jax_dd.build_device_tables(want.cdf, want.cdf_length,
                                      want.cdf_offset, want.inverse)
     for a, b in zip(got, ref):
@@ -301,6 +304,7 @@ def test_kernels_match_plain_versions(cuda_device, name):
     launches = (device_rans.ENCODE_KERNEL.launches,
                 device_rans.DECODE_KERNEL.launches)
     got = _port_encode(symbols, indices, tables, cuda_device, **caps)
+    torch.cuda.synchronize()
     want = _port_encode(symbols, indices, tables, **caps)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
@@ -320,12 +324,9 @@ def test_kernels_count_bad_indices(cuda_device):
     indices[0, 1, 2, 3] = -1
     *_, counts = _port_encode(symbols, indices, tables, cuda_device)
     assert int(counts[2]) == 2
-    cdf, lengths, offsets = tables
-    dt = build_device_tables(cdf, lengths, offsets, coding.build_inverse_table(
-        cdf, lengths, PRECISION)).to(cuda_device)
+    dt = rans_tables(*tables, precision=PRECISION).to(cuda_device)
     stream, _ = coding.encode_indexed(symbols, indices % 12, *tables,
                                       PRECISION)
     _, bad = decode_scan(words_tensor(stream, cuda_device),
-                         torch.from_numpy(_lay(indices)).to(cuda_device), dt,
-                         PRECISION)
+                         torch.from_numpy(_lay(indices)).to(cuda_device), dt)
     assert int(bad) == 2
