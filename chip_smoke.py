@@ -4,9 +4,11 @@
 
 Drives the port's paths at the flagship's full width: the codec round trip
 (image -> .hfc -> image) through `hific_tpu_torch.codec.Codec`, the batch
-codec (`compress_many` / `decompress_many` on the device rANS coders), and
-compression training steps through the trainer `hific_tpu_torch.cli.train`;
-and holds every kernel of those paths against its plain PyTorch version:
+codec (`compress_many` / `decompress_many` on the device rANS coders), a
+6 MP image whole and on tiles, the serving daemon `cli/serve.py` under
+concurrent clients, the compress and decompress CLIs, and compression
+training steps through the trainer `hific_tpu_torch.cli.train`; and holds
+every kernel of those paths against its plain PyTorch version:
 
 1. the card's name, power limit and count;
 2. builds the kernels from the sources in this checkout, all compilers
@@ -37,7 +39,8 @@ and holds every kernel of those paths against its plain PyTorch version:
    coder, with the batch's time and the same streams' one launch each;
 6. compress_file -> .hfc -> decompress_file of a seeded smooth 768x512
    image: decoded symbols equal the encoded ones, the forward kernel ran
-   exactly once per ChannelNorm (29 launches) and the decode kernel once,
+   exactly once per ChannelNorm (29 launches) and each rANS kernel once
+   (the encoder once more where the uncalibrated image overruns its caps),
    and the card's encoder/generator agree with the plain CPU path on a
    64x64 crop (within 1e-3); then, at bench.py's operating point (four
    seeded 1024x1024 images, the encoder's output scaled into 0.20-0.45
@@ -48,7 +51,26 @@ and holds every kernel of those paths against its plain PyTorch version:
    pipelined and device-resident times with the rANS kernels' device time
    in a profiled pass; and the count of coding indices
    where the card's synth_stats differs from the CPU's on one image's
-   hyperlatents (reported, not gated);
+   hyperlatents (reported, not gated); then a seeded 2000x3000 image
+   compressed whole and with tile_image=1024, halo_image=64, each file
+   decoding on the host coder to the symbols it encoded, the symbols where
+   the two encodes differ (measured), decompress(as_uint8) whole against
+   tile_latents=64 and 32 (largest pixel difference, measured), one rANS
+   launch per leg, each leg's time and peak device memory, and the
+   generator's peak on one tile-32 window under deterministic cuDNN and
+   with cuDNN free; then `cli/serve.py` in-process on 127.0.0.1 (port 0,
+   max_batch 8, batch window 2 ms, the encoder calibrated as in the batch
+   phase, one batch of each kind run before the timed window):
+   4 client threads POST 4 seeded 768x512 PNGs each to /compress, then
+   the bodies to /decompress; each body equals the same codec's
+   compress_many([x]) bytes, each PNG its decompress_many pixels, some
+   batch holds 2 or more requests and each rANS kernel launched once per
+   batch of its kind; requests/s, p50 and p99 per leg and the device busy
+   share of one profiled batch of each kind; then `cli.compress.main` on
+   two seeded PNGs (768x512, 75x93) per image and with --pipeline 2 (the
+   same .hfc bytes, the host coder's, finite PSNR) and `cli.decompress.main` on the files
+   (the served codec's pixels); the serving and CLI phases read the
+   artifact, or the seeded weights written to a temporary `.npz`;
 7. one tiny-config training step on the card against the same step on the
    CPU's plain path (same weights, same noise): loss within 1e-4, every
    gradient within 1e-3 of its leaf's largest;
@@ -414,14 +436,15 @@ def warm_round_trip(codec, x, card: str) -> None:
         path = os.path.join(tmp, "warm.hfc")
         _, enc_ms = timed(lambda: codec.compress_file(x, path))
         _, dec_ms = timed(lambda: codec.decompress_file(path, as_uint8=True))
+        _, host_ms = timed(lambda: codec.compress(x, device_encode=False))
         _, sym_ms = timed(lambda: codec.encode_symbols(x))
         out = load_compressed(path)
         _, dsym_ms = timed(lambda: codec.decode_symbols(out))
         log(f"warm round trip: compress_file {enc_ms:.1f} ms (device "
-            f"transforms + symbol fetch {sym_ms:.1f} ms, host rANS + file "
-            f"{enc_ms - sym_ms:.1f} ms); decompress_file {dec_ms:.1f} ms "
-            f"(rANS + synth_stats {dsym_ms:.1f} ms, generator + image fetch "
-            f"{dec_ms - dsym_ms:.1f} ms) ({card})")
+            f"encoder; compress on the host coder {host_ms:.1f} ms, of which "
+            f"device transforms + symbol fetch {sym_ms:.1f} ms); "
+            f"decompress_file {dec_ms:.1f} ms (device decoder; host rANS + "
+            f"synth_stats {dsym_ms:.1f} ms) ({card})")
         def round_trip():
             codec.compress_file(x, path)
             return codec.decompress_file(path, as_uint8=True)
@@ -895,7 +918,8 @@ def batch_path(codec, card: str):
 
         for i, (x, out, recon) in enumerate(zip(imgs, outs, recons)):
             path, got = hfc(out, f"{i}.hfc")
-            if got != hfc(codec.compress(x), f"{i}_host.hfc")[1]:
+            if got != hfc(codec.compress(x, device_encode=False),
+                          f"{i}_host.hfc")[1]:
                 raise AssertionError(f"image {i}: compress_many's .hfc "
                                      f"differs from the host coder's")
             host_recon = codec.decompress(load_compressed(path), as_uint8=True,
@@ -915,7 +939,8 @@ def batch_path(codec, card: str):
         finally:
             codec_module.default_caps = default_caps
         if (codec.device_relaunches - relaunches != 1
-                or forced != hfc(codec.compress(imgs[0]), "0_host.hfc")[1]):
+                or forced != hfc(codec.compress(imgs[0], device_encode=False),
+                                 "0_host.hfc")[1]):
             raise AssertionError("an encode past its caps was not relaunched "
                                  "on the card to the host coder's bytes")
     bpps = [o.total_bpp for o in outs]
@@ -1071,6 +1096,418 @@ def rans_entry(name: str, timed_rans, max_err: int, launches_by_path, batch):
     }
 
 
+SERVE_CLIENTS, SERVE_PER_CLIENT = 4, 4
+TILE_H, TILE_W = 2000, 3000  # a 6 MP camera photo; W not a multiple of 16
+TILE_IMAGE, TILE_LATENTS = 1024, (64, 32)  # halos: 64 pixels, 16 latents
+CLI_SIZES = ((IMAGE_H, IMAGE_W), (75, 93))
+
+
+def kernel_counts():
+    """(ChannelNorm forward, rans_encode, rans_decode) launch counts."""
+    from hific_tpu_torch.entropy import device_rans
+    from hific_tpu_torch.ops import fused_norm
+
+    return (fused_norm.KERNEL.launches, device_rans.ENCODE_KERNEL.launches,
+            device_rans.DECODE_KERNEL.launches)
+
+
+def zero_kernel_counts() -> None:
+    from hific_tpu_torch.entropy import device_rans
+    from hific_tpu_torch.ops import fused_norm
+
+    fused_norm.KERNEL.launches = 0
+    device_rans.ENCODE_KERNEL.launches = 0
+    device_rans.DECODE_KERNEL.launches = 0
+
+
+def params_npz(weights: str, state, config, tmp: str) -> str:
+    """The `-ckpt` of the serving and CLI phases: the artifact where it is
+    present, else the seeded weights written to an uncompressed `.npz` in
+    the artifact's layout (compressing 0.7 GB would take most of a
+    minute)."""
+    from hific_tpu_torch.models.hific import HiFiC
+    from hific_tpu_torch.weights import (NPZ_CONFIG_KEY, NPZ_LEAF_PREFIX,
+                                         jax_params_from_model)
+
+    if os.path.exists(weights):
+        return weights
+    model = HiFiC(config)
+    model.load_state_dict(state)
+    entries = {NPZ_LEAF_PREFIX + k: v
+               for k, v in jax_params_from_model(model).items()}
+    entries[NPZ_CONFIG_KEY] = np.frombuffer(config.to_json().encode("utf-8"),
+                                            dtype=np.uint8)
+    path = os.path.join(tmp, "params.npz")
+    np.savez(path, **entries)
+    return path
+
+
+def latency_summary(times_ms, wall_s):
+    return {"requests": len(times_ms),
+            "requests_per_s": len(times_ms) / wall_s,
+            "p50_ms": float(np.percentile(times_ms, 50)),
+            "p99_ms": float(np.percentile(times_ms, 99))}
+
+
+def build_server(npz: str):
+    """`cli/serve.py`'s server in-process on 127.0.0.1, port 0, with its
+    defaults (max_batch 8, batch window 2 ms), serving from a thread of its
+    own; the caller shuts it down and closes it."""
+    import logging
+    import threading
+
+    from hific_tpu_torch.cli import serve as serve_cli
+
+    t0 = time.perf_counter()
+    quiet = logging.getLogger("chip_smoke.serve")
+    quiet.setLevel(logging.WARNING)
+    server = serve_cli.make_server(serve_cli.parse_args(
+        ["-ckpt", npz, "--host", "127.0.0.1", "--port", "0"]), quiet)
+    service = server.service
+    log(f"server built in {time.perf_counter() - t0:.1f} s (weights, model, "
+        f"tables; max_batch {service.max_batch}, window "
+        f"{service.batch_window_s * 1e3:.0f} ms)")
+    threading.Thread(target=server.serve_forever, daemon=True,
+                     name="http").start()
+    return server
+
+
+def serve_path(server, card: str):
+    """The server of `build_server` serving: SERVE_CLIENTS threads POST
+    SERVE_PER_CLIENT seeded 768x512 PNGs each to /compress, then, after
+    all have their files, the returned bodies to /decompress. Gates: each
+    body is the same codec's compress_many([x]) bytes, each PNG its
+    decompress_many pixels, max_batch_seen >= 2, one encode launch per
+    compress batch and one decode launch per decompress batch. Returns
+    (kernel counts, summary)."""
+    import threading
+    import urllib.request
+
+    from hific_tpu_torch.cli import serve as serve_cli
+    from hific_tpu_torch.entropy.container import dumps_compressed
+    from hific_tpu_torch.utils.image_io import decode_image, encode_png
+
+    service = server.service
+    codec = service.codec
+    # The batch phase's operating point, before any request.
+    alpha, bpp = calibrate(codec, bench_image(0))
+    # One request of each kind at the served shape through the dispatcher
+    # first, so that the timed window sees the steady state: the dispatcher
+    # thread's own cuDNN and cuBLAS handles (PyTorch keeps them per thread)
+    # are made by its first batch. The counters below are read from here.
+    service._submit("decompress", service._submit("compress",
+                                                  smooth_image(90)))
+    warm = service.stats_snapshot()
+    base = "http://%s:%d" % server.server_address[:2]
+
+    n = SERVE_CLIENTS * SERVE_PER_CLIENT
+    images = [smooth_image(100 + i) for i in range(n)]
+    pngs = [encode_png(x[0]) for x in images]
+    bodies, recons = [None] * n, [None] * n
+    times = {"compress": [None] * n, "decompress": [None] * n}
+    legs = {}
+    errors = []
+    barrier = threading.Barrier(SERVE_CLIENTS + 1)
+
+    def post(path, body):
+        req = urllib.request.Request(base + path, data=body, method="POST")
+        t = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.read(), (time.perf_counter() - t) * 1e3
+
+    def client(c):
+        mine = range(c * SERVE_PER_CLIENT, (c + 1) * SERVE_PER_CLIENT)
+        try:
+            for leg, inputs, outputs in (("compress", pngs, bodies),
+                                         ("decompress", bodies, recons)):
+                barrier.wait(timeout=600)  # the leg starts
+                for i in mine:
+                    outputs[i], times[leg][i] = post("/" + leg, inputs[i])
+                barrier.wait(timeout=600)  # every client has its answers
+        except Exception as e:  # noqa: BLE001 -- raised by the main thread
+            errors.append(e)
+            barrier.abort()
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(SERVE_CLIENTS)]
+    for t in threads:
+        t.start()
+    zero_kernel_counts()
+    relaunches = codec.device_relaunches
+    for leg in ("compress", "decompress"):
+        try:
+            barrier.wait(timeout=600)
+            t0 = time.perf_counter()
+            barrier.wait(timeout=600)
+        except threading.BrokenBarrierError:
+            break
+        legs[leg] = time.perf_counter() - t0
+    for t in threads:
+        t.join(timeout=600)
+    counts = kernel_counts()
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"serve clients failed: {errors}")
+    stats = {k: v - warm[k] if k != "max_batch_seen" else v
+             for k, v in service.stats_snapshot().items()}
+
+    if codec.device_relaunches != relaunches:
+        raise AssertionError("a served encode overran the default caps")
+    if (counts[1], counts[2]) != (stats["compress_batches"],
+                                  stats["decompress_batches"]):
+        raise AssertionError(f"{counts[1]} encode and {counts[2]} decode "
+                             f"launches for {stats['compress_batches']} "
+                             f"compress and {stats['decompress_batches']} "
+                             f"decompress batches; expected one each")
+    if counts[0] == 0:
+        raise AssertionError("serve: the ChannelNorm kernel never launched")
+    if stats["max_batch_seen"] < 2 or stats["errors"]:
+        raise AssertionError(f"serve stats {stats}: no batch of 2 or more, "
+                             f"or errors")
+    bpps = []
+    for i, x in enumerate(images):
+        out = codec.compress_many([x])[0]
+        bpps.append(out.total_bpp)
+        if bodies[i] != dumps_compressed(out)[0]:
+            raise AssertionError(f"request {i}: the served .hfc differs from "
+                                 f"compress_many([x])")
+        if not np.array_equal(decode_image(recons[i]),
+                              codec.decompress_many([out])[0][0]):
+            raise AssertionError(f"request {i}: the served PNG differs from "
+                                 f"decompress_many's pixels")
+
+    # One batch of each kind through the dispatcher's own runner, profiled.
+    jobs = [serve_cli._Job("compress", x) for x in images[:SERVE_CLIENTS]]
+    c_wall, _, c_busy = profiled(lambda: service._run_batch(jobs))
+    djobs = [serve_cli._Job("decompress", j.result) for j in jobs]
+    d_wall, _, d_busy = profiled(lambda: service._run_batch(djobs))
+    summary = {
+        "clients": SERVE_CLIENTS, "alpha": alpha,
+        "bpp": float(np.mean(bpps)),
+        "compress": latency_summary(times["compress"], legs["compress"]),
+        "decompress": latency_summary(times["decompress"],
+                                      legs["decompress"]),
+        "stats": stats,
+        "profiled_compress_batch": {"images": len(jobs), "wall_ms": c_wall,
+                                    "device_busy_ms": c_busy,
+                                    "busy_share": c_busy / c_wall},
+        "profiled_decompress_batch": {"images": len(djobs),
+                                      "wall_ms": d_wall,
+                                      "device_busy_ms": d_busy,
+                                      "busy_share": d_busy / d_wall},
+    }
+    for leg in ("compress", "decompress"):
+        s = summary[leg]
+        log(f"serve /{leg}: {s['requests']} requests from {SERVE_CLIENTS} "
+            f"clients, {s['requests_per_s']:.2f} requests/s, p50 "
+            f"{s['p50_ms']:.1f} ms, p99 {s['p99_ms']:.1f} ms (client clock; "
+            f"{IMAGE_W}x{IMAGE_H} at {summary['bpp']:.4f} bpp, encoder output "
+            f"scaled by "
+            f"{alpha:.5f}; {card})")
+    log(f"serve: {stats['compress_batches']} compress and "
+        f"{stats['decompress_batches']} decompress batches, max batch "
+        f"{stats['max_batch_seen']}; launches norm {counts[0]}, rans_encode "
+        f"{counts[1]}, rans_decode {counts[2]} (one of each rANS kernel per "
+        f"batch); bodies equal compress_many's bytes, PNGs "
+        f"decompress_many's pixels")
+    log(f"profiled dispatcher batches of {len(jobs)}: compress wall "
+        f"{c_wall:.1f} ms, device busy {c_busy:.1f} ms ({c_busy / c_wall:.0%});"
+        f" decompress wall {d_wall:.1f} ms, device busy {d_busy:.1f} ms "
+        f"({d_busy / d_wall:.0%}) ({card})")
+    return counts, summary
+
+
+def generator_peaks(codec, side: int):
+    """Peak device memory (GiB) of the generator on one side x side latent
+    window under the codec's numerics (deterministic cuDNN) and with cuDNN
+    free to pick its algorithms, and the peak reached by the end of
+    upconv0 (its first transposed convolution) in each."""
+    from hific_tpu_torch.runtime import fp32_numerics
+
+    generator = codec.model.generator
+    lat = torch.randn(1, codec.config.latent_channels, side, side,
+                      device=codec.device).contiguous(
+                          memory_format=torch.channels_last)
+    marks, peaks = [], {}
+    hook = generator.upconv0.register_forward_hook(
+        lambda *_: marks.append(torch.cuda.max_memory_allocated() / 2 ** 30))
+    for name, deterministic in (("deterministic", True), ("free", False)):
+        with torch.inference_mode(), fp32_numerics(deterministic):
+            generator(lat)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            marks.clear()
+            generator(lat)
+            torch.cuda.synchronize()
+        peaks[name] = {"peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                       "peak_after_upconv0_gib": marks[0]}
+    hook.remove()
+    return peaks
+
+
+def tiling_path(codec, card: str):
+    """A seeded 2000x3000 image: whole-image compress against
+    compress(tile_image=1024, halo_image=64), both on the device encoder,
+    each file decoded on the host coder to the symbols it encoded (gated),
+    the symbols where the two encodes differ (measured);
+    decompress(as_uint8) against decompress(tile_latents=64) and (32), all
+    on the device decoder, the largest pixel differences (measured); one
+    rANS launch per leg (gated); each leg's time and peak device memory,
+    and the generator's peak on one tile-32 window by cuDNN mode. Returns
+    (kernel counts, summary)."""
+    x = bench_image(7, TILE_H, TILE_W)
+    x_in = codec._model_input(x)
+    legs, peaks = {}, {}
+
+    def leg(name, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out, legs[name] = timed(fn)
+        peaks[name] = torch.cuda.max_memory_allocated() / 2 ** 30
+        return out
+
+    # Each leg once first: cuDNN picks its algorithms for new shapes.
+    warm = codec.compress(x)
+    codec.compress(x, tile_image=TILE_IMAGE, halo_image=64)
+    for tile in (None, *TILE_LATENTS):
+        codec.decompress(warm, tile_latents=tile, as_uint8=True)
+    zero_kernel_counts()
+    relaunched = codec.device_relaunches
+    whole = leg("compress", lambda: codec.compress(x))
+    tiled = leg("compress_tiled", lambda: codec.compress(
+        x, tile_image=TILE_IMAGE, halo_image=64))
+    r_whole = leg("decompress", lambda: codec.decompress(whole,
+                                                         as_uint8=True))
+    r_tiled = {tile: leg(f"decompress_tiled_{tile}", lambda: codec.decompress(
+        whole, tile_latents=tile, as_uint8=True)) for tile in TILE_LATENTS}
+    counts = kernel_counts()
+    # One launch per leg, and one more for an encode past the default caps.
+    want = (2 + codec.device_relaunches - relaunched, 1 + len(TILE_LATENTS))
+    if counts[0] == 0 or counts[1:] != want:
+        raise AssertionError(f"tiling legs: launches (norm, rans_encode, "
+                             f"rans_decode) {counts}; expected (>0, "
+                             f"{want[0]}, {want[1]})")
+    enc_whole = codec._symbols(x_in)
+    enc_tiled = codec._symbols(x_in, TILE_IMAGE, 64)
+    for name, out, enc in (("whole", whole, enc_whole),
+                           ("tiled", tiled, enc_tiled)):
+        z_dec, y_dec, _ = codec.decode_symbols(out)
+        if not (np.array_equal(z_dec, enc[0])
+                and np.array_equal(y_dec, enc[1])):
+            raise AssertionError(f"the {name} 2000x3000 file does not decode "
+                                 f"to the symbols it encoded")
+    if any(r.shape != x.shape for r in (r_whole, *r_tiled.values())):
+        raise AssertionError(f"reconstructions {r_whole.shape}, "
+                             f"{[r.shape for r in r_tiled.values()]}")
+    y_diff = int((enc_whole[1] != enc_tiled[1]).sum())
+    z_diff = int((enc_whole[0] != enc_tiled[0]).sum())
+    pixel = {tile: int(np.abs(r_whole.astype(int) - r.astype(int)).max())
+             for tile, r in r_tiled.items()}
+    window = TILE_LATENTS[-1] + 2 * 16  # the smallest tile's window
+    gen_peaks = generator_peaks(codec, window)
+    summary = {
+        "shape": [TILE_H, TILE_W], "bpp": whole.total_bpp,
+        "tiled_bpp": tiled.total_bpp,
+        "y_symbols_differ": y_diff, "y_symbols": int(enc_whole[1].size),
+        "z_symbols_differ": z_diff, "z_symbols": int(enc_whole[0].size),
+        "hfc_bytes_equal": bool(
+            np.array_equal(whole.latents_encoded, tiled.latents_encoded)
+            and np.array_equal(whole.hyperlatents_encoded,
+                               tiled.hyperlatents_encoded)),
+        "max_pixel_diff_tiled_decode": pixel,
+        "ms": legs, "peak_gib": peaks,
+        f"generator_{window}x{window}_latents": gen_peaks,
+    }
+    log(f"tiling {TILE_W}x{TILE_H} ({whole.total_bpp:.4f} bpp): tiled encode "
+        f"(tile {TILE_IMAGE}, halo 64) vs whole: {y_diff} of {enc_whole[1].size} y and "
+        f"{z_diff} of {enc_whole[0].size} z symbols differ; both files "
+        f"decode to their symbols; tiled decode (halo 16) vs whole: largest "
+        f"pixel difference " + ", ".join(f"{d} at {t} latents"
+                                         for t, d in pixel.items()))
+    log("tiling legs: " + "; ".join(
+        f"{k} {summary['ms'][k]:.1f} ms, peak {summary['peak_gib'][k]:.2f} GiB"
+        for k in summary["ms"]) + f" (host clock after synchronize; "
+        f"max_memory_allocated; {card})")
+    log(f"generator on {window}x{window} latents: " + "; ".join(
+        f"cuDNN {k}: peak {v['peak_gib']:.2f} GiB, by the end of upconv0 "
+        f"{v['peak_after_upconv0_gib']:.2f} GiB" for k, v in gen_peaks.items())
+        + f" ({card})")
+    return counts, summary
+
+
+def cli_path(codec, npz: str, card: str):
+    """Two seeded PNGs (768x512, 75x93) through `cli.compress.main` per
+    image and with --pipeline 2, then `cli.decompress.main` on the
+    per-image files. Gates: the two modes' .hfc files byte-equal and equal
+    to `codec`'s host coder's bytes (both modes take the device encoder),
+    finite PSNR in metrics.json, the decoded PNGs `codec`'s pixels. `codec`
+    holds the weights of `npz` as they are (not calibrated). Returns
+    (kernel counts, summary)."""
+    from hific_tpu_torch.cli import compress as compress_cli
+    from hific_tpu_torch.cli import decompress as decompress_cli
+    from hific_tpu_torch.entropy.container import (dumps_compressed,
+                                                   load_compressed)
+    from hific_tpu_torch.training.data import EvalDataset
+    from hific_tpu_torch.utils.image_io import read_image, write_png
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "images")
+        os.makedirs(src)
+        for i, (h, w) in enumerate(CLI_SIZES):
+            write_png(os.path.join(src, f"img_{i}.png"),
+                      smooth_image(200 + i)[0, :h, :w])
+        one, grouped, dec = (os.path.join(tmp, d)
+                             for d in ("single", "pipeline", "decoded"))
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        rows = compress_cli.main(["-ckpt", npz, "-i", src, "-o", one])
+        t_one = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        compress_cli.main(["-ckpt", npz, "-i", src, "-o", grouped,
+                           "--pipeline", "2", "--no_lpips"])
+        t_grouped = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        written = decompress_cli.main(["-ckpt", npz, "-i", one, "-o", dec])
+        t_dec = time.perf_counter() - t0
+        counts = kernel_counts()
+        if min(counts) == 0:
+            raise AssertionError(f"CLIs: launches (norm, rans_encode, "
+                                 f"rans_decode) {counts}; a kernel never ran")
+        with open(os.path.join(one, "metrics.json")) as f:
+            metrics = json.load(f)
+        if not all(math.isfinite(r["psnr"]) for r in metrics):
+            raise AssertionError(f"metrics.json: {metrics}")
+        for i in range(len(CLI_SIZES)):
+            with open(os.path.join(one, f"img_{i}.hfc"), "rb") as f:
+                a = f.read()
+            with open(os.path.join(grouped, f"img_{i}.hfc"), "rb") as f:
+                b = f.read()
+            if a != b:
+                raise AssertionError(f"img_{i}: --pipeline 2 wrote other "
+                                     f".hfc bytes than the per-image run")
+        for x, _, path in EvalDataset(src):
+            name = os.path.splitext(os.path.basename(path))[0]
+            with open(os.path.join(one, name + ".hfc"), "rb") as f:
+                if f.read() != dumps_compressed(
+                        codec.compress(x, device_encode=False))[0]:
+                    raise AssertionError(f"{name}: the CLI's .hfc differs "
+                                         f"from the host coder's")
+        for i, png in enumerate(written):
+            want = codec.decompress(load_compressed(
+                os.path.join(one, f"img_{i}.hfc")), as_uint8=True)[0]
+            if not np.array_equal(read_image(png), want):
+                raise AssertionError(f"{png}: not the codec's pixels")
+    summary = {"rows": rows, "compress_per_image_s": t_one,
+               "compress_pipeline_s": t_grouped, "decompress_s": t_dec}
+    log(f"CLIs: compress per image {t_one:.1f} s, --pipeline 2 "
+        f"{t_grouped:.1f} s, decompress {t_dec:.1f} s (each loads the "
+        f"weights and builds its tables); the two modes' .hfc equal the host "
+        f"coder's; PSNR "
+        + ", ".join(f"{r['psnr']:.2f}" for r in rows) + " dB; decoded PNGs "
+        f"equal the codec's pixels; launches norm {counts[0]}, rans_encode "
+        f"{counts[1]}, rans_decode {counts[2]} ({card})")
+    return counts, summary
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--weights", default=os.path.join(
@@ -1169,6 +1606,7 @@ def main() -> int:
         fused_norm.KERNEL.launches = 0
         device_rans.ENCODE_KERNEL.launches = 0
         device_rans.DECODE_KERNEL.launches = 0
+        relaunched = codec.device_relaunches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         actual_bpp, estimated_bpp = codec.compress_file(x, path)
@@ -1181,6 +1619,9 @@ def main() -> int:
         launches = fused_norm.KERNEL.launches
         rt_rans = (device_rans.ENCODE_KERNEL.launches,
                    device_rans.DECODE_KERNEL.launches)
+        # An encode whose streams overran the default caps (the image is
+        # uncalibrated: several bpp) is coded again in one more launch.
+        relaunched = codec.device_relaunches - relaunched
         for h in hooks:
             h.remove()
         out = load_compressed(path)
@@ -1189,9 +1630,9 @@ def main() -> int:
     if launches != len(shapes) or seen != shapes:
         raise AssertionError(f"channel_norm kernel launched {launches} times "
                              f"on shapes {seen}; expected {shapes}")
-    if rt_rans != (0, 1):
+    if rt_rans != (1 + relaunched, 1):
         raise AssertionError(f"round trip: {rt_rans} rans_encode/rans_decode "
-                             f"launches; expected (0, 1)")
+                             f"launches; expected ({1 + relaunched}, 1)")
     if not (np.array_equal(z_enc, z_dec) and np.array_equal(y_enc, y_dec)):
         raise AssertionError("decoded symbols differ from the encoded ones")
     if recon.shape != x.shape or recon.dtype != np.uint8:
@@ -1199,7 +1640,8 @@ def main() -> int:
     mse = np.mean((recon.astype(np.float64) - x.astype(np.float64)) ** 2)
     psnr = 10 * np.log10(255.0 ** 2 / max(mse, 1e-12))
     log(f"round trip {IMAGE_W}x{IMAGE_H}: {launches} channel_norm launches, "
-        f"symbols equal (z {z_enc.shape}, y {y_enc.shape}); {actual_bpp:.4f} "
+        f"rans_encode {rt_rans[0]} ({relaunched} relaunch past the default "
+        f"caps), rans_decode {rt_rans[1]}; symbols equal (z {z_enc.shape}, y {y_enc.shape}); {actual_bpp:.4f} "
         f"bpp (estimate {estimated_bpp:.4f}); PSNR {psnr:.2f} dB")
     log(f"first round trip: compress_file {t_enc * 1e3:.1f} ms, "
         f"decompress_file {t_dec * 1e3:.1f} ms (host clock after synchronize;"
@@ -1241,7 +1683,26 @@ def main() -> int:
         f"gated)")
     print("batch path:", json.dumps(batch), flush=True)
 
-    del codec, cpu
+    # Phase 6d: a 6 MP image whole and on tiles.
+    tile_counts, tiling = tiling_path(codec, card)
+    print("tiling:", json.dumps(tiling), flush=True)
+
+    # Phase 6e: the compress and decompress CLIs, compared with the served
+    # codec before its calibration; phase 6f: the serving daemon under
+    # concurrent clients.
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = params_npz(args.weights, state, config, tmp)
+        server = build_server(npz)
+        try:
+            cli_counts, cli = cli_path(server.service.codec, npz, card)
+            serve_counts, serve = serve_path(server, card)
+        finally:
+            server.shutdown()
+            server.server_close()
+    print("serve:", json.dumps(serve), flush=True)
+    print("cli:", json.dumps(cli), flush=True)
+
+    del codec, cpu, server
     torch.cuda.empty_cache()
 
     # Phase 7: a tiny training step, card against the CPU's plain path.
@@ -1257,8 +1718,12 @@ def main() -> int:
         "route": "cuda",
         "source": "hific_tpu_torch/csrc/channel_norm.cu",
         "replaces": "hific_tpu/ops/pallas_norm.py:49",
-        "launches": launches + fwd_launches,
+        "launches": (launches + fwd_launches + serve_counts[0]
+                     + tile_counts[0] + cli_counts[0]),
         "launches_by_path": {"codec_round_trip": launches,
+                             "serve": serve_counts[0],
+                             "tiling": tile_counts[0],
+                             "cli": cli_counts[0],
                              "train_steps": fwd_launches},
         "max_abs_err": summary["max_abs_err"],
         "ms": summary["ms"],
@@ -1289,9 +1754,15 @@ def main() -> int:
                      rans_batch)
           for name, launches_by_path in (
               ("rans_encode", {"codec_round_trip": rt_rans[0],
-                               "compress_many": enc_launches}),
+                               "compress_many": enc_launches,
+                               "serve": serve_counts[1],
+                               "tiling": tile_counts[1],
+                               "cli": cli_counts[1]}),
               ("rans_decode", {"codec_round_trip": rt_rans[1],
-                               "decompress_many": dec_launches}))]}))
+                               "decompress_many": dec_launches,
+                               "serve": serve_counts[2],
+                               "tiling": tile_counts[2],
+                               "cli": cli_counts[2]}))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))
     return 0

@@ -1,7 +1,9 @@
 """hific_tpu_torch: HiFiC in PyTorch for one NVIDIA H100.
 
 A port of the JAX package `hific_tpu` beside it, which stays the reference
-that this package is held against: the codec (`codec.py`) and the
+that this package is held against: the codec (`codec.py`, with tiling in
+`tiling.py`), its command-line tools and serving daemon
+(`cli/compress.py`, `cli/decompress.py`, `cli/serve.py`) and the
 compression training stage (`cli/train.py`). Plain convolutions run in
 cuDNN through torch; the TPU package's Pallas kernel, ChannelNorm, is a
 pair of hand-written CUDA kernels here, forward and backward

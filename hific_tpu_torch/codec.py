@@ -15,17 +15,27 @@ symbols, which is what keeps the two sides' CDF rows identical.
 Two coders write the same bytes. The host coder (`entropy/coding.py`, the
 native `rans.cc`) fetches the symbol planes; the device coders
 (`entropy/device_encode.py`, `device_decode.py`, CUDA kernels on the card)
-code where the symbols are, a batch of streams per kernel launch. As in the
-JAX package on its accelerator, on a CUDA codec `compress` uses the host
-coder unless asked, `compress_many` the device encoder for every batch-1
-image (the y and z streams of all of them in one launch), and
-`decompress(as_uint8=True)` and `decompress_many` the device decoder
-wherever the payload is batch 1 (the y streams of all of them in one
-launch); a CPU codec takes the host coder unless asked (`device_encode=True`,
-`device_decode=True` run the kernels' plain versions). The streams that
-overrun a device buffer's default capacity are launched again on the device
-with buffers of the demand they reported. Not ported yet: `pipeline_chunk`, `wire_chunk` and the packed host-coder
-wire, tiling, `coder_threads` (container v2) and the spatial methods.
+code where the symbols are, a batch of streams per kernel launch. On a CUDA
+codec every batch-1 input, tiled or not, takes the device encoder
+(`compress`; `compress_many` codes the y and z streams of all its images in
+one launch) and every batch-1 payload the device decoder (`decompress`,
+`decompress_many`: the y streams of all of them in one launch). A payload
+of a larger batch takes the host coder, as does a CPU codec unless asked
+(`device_encode=True`, `device_decode=True` run the kernels' plain
+versions); `device_encode=False` / `device_decode=False` ask for the host
+coder. The JAX package's `compress` takes its host coder by default, a
+choice made for its accelerator's wire. The streams that overrun a device
+buffer's default capacity are launched again on the device with buffers of
+the demand they reported.
+
+Tiling (`compress(tile_image=)`, `decompress(tile_latents=)`,
+`decompress_many(tile_latents=)`): the encoder runs on clamped image tiles
+whose assembled latents equal the whole image's, and the generator on
+reflect-padded latent tiles whose cores cross to the host while later
+tiles run (`tiling.py`). The coders are the untiled encode's and decode's.
+`reconstruct` is the round trip without entropy coding. Not ported yet:
+`pipeline_chunk`, `wire_chunk` and the packed host-coder wire,
+`coder_threads` (container v2) and the spatial methods.
 """
 
 from typing import NamedTuple, Optional, Tuple
@@ -57,7 +67,11 @@ from hific_tpu_torch.entropy.entropy_models import (
 from hific_tpu_torch.entropy.rans_tables import rans_tables
 from hific_tpu_torch.models.hific import HiFiC
 from hific_tpu_torch.ops.padding import pad_factor
-from hific_tpu_torch.runtime import fp32_numerics, resolve_device
+from hific_tpu_torch.runtime import Fetch, fp32_numerics, resolve_device
+from hific_tpu_torch.tiling import tiled_downsample_apply, tiled_upsample_apply
+
+# The encoder's downsampling factor (and the generator's upsampling one).
+ENC_SCALE = 16
 
 
 # The device work of the codec's methods runs in fp32 with TF32 off and
@@ -78,26 +92,6 @@ def _lanes(t: torch.Tensor) -> torch.Tensor:
     row-major order (the host coder's lane layout)."""
     _, c, h, w = t.shape
     return t.permute(0, 2, 3, 1).reshape(h * w, c).to(torch.int32).contiguous()
-
-
-class _Fetch:
-    """A device tensor's copy to the host, enqueued now on the current
-    stream (into pinned memory) and waited for only by `result`."""
-
-    def __init__(self, t: torch.Tensor):
-        self._event = None
-        if t.device.type == "cuda":
-            self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            self._host.copy_(t, non_blocking=True)
-            self._event = torch.cuda.Event()
-            self._event.record()
-        else:
-            self._host = t
-
-    def result(self) -> np.ndarray:
-        if self._event is not None:
-            self._event.synchronize()
-        return self._host.numpy()
 
 
 def _output(z_encoded, y_encoded, hyper_spatial, spatial_shape, hyper_coding,
@@ -191,12 +185,23 @@ class Codec:
         x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
         return pad_factor(x, shape_bucket) if shape_bucket else x
 
+    def _front(self, x: torch.Tensor, tile_image: Optional[int] = None,
+               halo_image: int = 64):
+        """`compress_front` of the model input, its encoder on image tiles
+        when `tile_image` is given."""
+        if tile_image is None:
+            return self.model.compress_front(x)
+        y = tiled_downsample_apply(self.model.encoder, x, scale=ENC_SCALE,
+                                   tile=tile_image, halo=halo_image)
+        return self.model.compress_front_from_latents(y)
+
     @_codec_numerics
     @torch.inference_mode()
-    def _symbols(self, x: torch.Tensor):
+    def _symbols(self, x: torch.Tensor, tile_image: Optional[int] = None,
+                 halo_image: int = 64):
         """Model input -> numpy (z_sym, y_sym, idx) in NCHW int32 and the
         hyperlatent and latent Shannon bits."""
-        y, z_sym, hyper_bits = self.model.compress_front(x)
+        y, z_sym, hyper_bits = self._front(x, tile_image, halo_image)
         mu, sigma, idx = self.model.synth_stats(z_sym, self.scale_table)
         y_sym, latent_bits = self.model.latent_symbols(y, mu, sigma)
         return (_numpy(z_sym, np.int32), _numpy(y_sym, np.int32),
@@ -208,10 +213,12 @@ class Codec:
         x = self._model_input(x)
         return self._symbols(x) + (tuple(int(s) for s in x.shape[2:]),)
 
-    def _host_compress(self, x: torch.Tensor, spatial_shape
-                       ) -> CompressionOutput:
+    def _host_compress(self, x: torch.Tensor, spatial_shape,
+                       tile_image: Optional[int] = None,
+                       halo_image: int = 64) -> CompressionOutput:
         """Host rANS coding of the model input's symbol planes."""
-        z_sym, y_sym, idx, hyper_bits, latent_bits = self._symbols(x)
+        z_sym, y_sym, idx, hyper_bits, latent_bits = self._symbols(
+            x, tile_image, halo_image)
         z_encoded, hyper_coding_shape = self.factorized.compress_symbols(z_sym)
         y_encoded, latent_coding_shape = self.conditional.compress_symbols(
             y_sym, idx)
@@ -224,27 +231,30 @@ class Codec:
 
     @staticmethod
     def _device_encode_eligible(x: torch.Tensor) -> bool:
-        """Batch 1: the lane layout of the device coders (channels as
-        lanes over positions)."""
+        """Batch 1: the lane layout of the device coders (channels as lanes
+        over positions)."""
         return int(x.shape[0]) == 1
 
     def _use_device_encode(self, x: torch.Tensor,
                            device_encode: Optional[bool]) -> bool:
-        if device_encode and not self._device_encode_eligible(x):
+        eligible = self._device_encode_eligible(x)
+        if device_encode and not eligible:
             raise ValueError("device_encode=True but the input is not "
                              "eligible for the device encoder (batch 1)")
         if device_encode is None:
-            return (self.device.type == "cuda"
-                    and self._device_encode_eligible(x))
+            return self.device.type == "cuda" and eligible
         return device_encode
 
     @_codec_numerics
     @torch.inference_mode()
-    def _stage_device_compress(self, x: torch.Tensor) -> _StagedEncode:
+    def _stage_device_compress(self, x: torch.Tensor,
+                               tile_image: Optional[int] = None,
+                               halo_image: int = 64) -> _StagedEncode:
         """Enqueue one model input's device work up to the symbols: front
-        -> the one shared synth_stats -> latent symbols, laid out for the
-        encode kernel. Blocks on nothing."""
-        y, z_sym, hyper_bits = self.model.compress_front(x)
+        (its encoder on image tiles when `tile_image` is given) -> the one
+        shared synth_stats -> latent symbols, laid out for the encode
+        kernel. Blocks on nothing."""
+        y, z_sym, hyper_bits = self._front(x, tile_image, halo_image)
         mu, sigma, idx = self.model.synth_stats(z_sym, self.scale_table)
         y_sym, latent_bits = self.model.latent_symbols(y, mu, sigma)
         (_, cy, hy, wy), (_, cz, hz, wz) = y_sym.shape, z_sym.shape
@@ -259,12 +269,12 @@ class Codec:
 
     @staticmethod
     @torch.inference_mode()
-    def _encode(jobs, extra=()) -> _Fetch:
+    def _encode(jobs, extra=()) -> Fetch:
         """One launch of the encode kernel over `jobs` and the enqueued
         fetch of one int32 buffer: [counts (3), stream (2 L + spill_cap)]
         per job, then the `extra` tensors."""
         outs = encode_scan_many(jobs)
-        return _Fetch(torch.cat([t for stream, _, counts in outs
+        return Fetch(torch.cat([t for stream, _, counts in outs
                                  for t in (counts, stream)] + list(extra)))
 
     def _device_compress(self, staged, spatial_shapes) -> list:
@@ -304,22 +314,31 @@ class Codec:
         return outputs
 
     def compress(self, x, shape_bucket: Optional[int] = None,
+                 tile_image: Optional[int] = None, halo_image: int = 64,
                  device_encode: Optional[bool] = None) -> CompressionOutput:
         """x: (N, H, W, 3) uint8, or float in the model's input range.
 
         shape_bucket: reflect-pad H and W up to multiples of this before
         encoding (the decoder crops back to the image's size).
-        device_encode: code on the device (batch 1 only; True on a larger
-        batch raises). The default is the host coder, as the JAX package's;
-        the bytes are the same either way."""
+        tile_image: run the encoder on image tiles of this size with
+        `halo_image` pixels of context (both multiples of 16), bounding
+        the encoder's device memory for large images; the bytes equal the
+        whole-image encode's when halo_image is at least the encoder's
+        one-sided receptive extent (49 px; default 64).
+        device_encode: code on the device. By default a CUDA codec does for
+        a batch-1 input, tiled or not, and a CPU codec takes the host
+        coder; True codes on any device (the kernel's plain version on the
+        CPU) and raises on a larger batch; False takes the host coder. The
+        bytes are the same either way."""
         if not self._tables_built:
             self.build_tables()
         spatial_shape = tuple(int(s) for s in np.shape(x)[1:3])
         x = self._model_input(x, shape_bucket)
-        if device_encode and self._use_device_encode(x, device_encode):
-            return self._device_compress([self._stage_device_compress(x)],
-                                         [spatial_shape])[0]
-        return self._host_compress(x, spatial_shape)
+        if self._use_device_encode(x, device_encode):
+            return self._device_compress(
+                [self._stage_device_compress(x, tile_image, halo_image)],
+                [spatial_shape])[0]
+        return self._host_compress(x, spatial_shape, tile_image, halo_image)
 
     def compress_many(self, images, shape_bucket: Optional[int] = None,
                       device_encode: Optional[bool] = None) -> list:
@@ -385,99 +404,136 @@ class Codec:
             recon = (recon * 255.0 + 0.5).to(torch.uint8)
         return recon.permute(0, 2, 3, 1)
 
-    @_codec_numerics
-    @torch.inference_mode()
-    def _host_decode(self, out: CompressionOutput, as_uint8: bool
-                     ) -> torch.Tensor:
+    def _host_latents(self, out: CompressionOutput) -> torch.Tensor:
+        """Host rANS of both streams -> the quantized latents y + mu on
+        the device."""
         _, y_np, mu = self.decode_symbols(out)
-        y_hat = torch.from_numpy(y_np).to(self.device, torch.float32).contiguous(
+        return torch.from_numpy(y_np).to(self.device, torch.float32).contiguous(
             memory_format=torch.channels_last) + mu
-        return self._generate(y_hat, out.spatial_shape, as_uint8)
+
+    def _device_latents(self, outs):
+        """Enqueue the device decode of a batch of payloads: per image the
+        host rANS of z, the stream's upload and the shared synth_stats; the
+        y streams of all of them in one decode launch. Returns (the
+        quantized latents y + mu of each, the kernel's counts of bad
+        indices), all on the device; blocks on nothing."""
+        stats = [self._hyper_stats(o) for o in outs]
+        decoded = decode_scan_many([
+            DecodeJob(words_tensor(o.latents_encoded, self.device),
+                      _lanes(idx), self._rans_tables[0])
+            for o, (_, _, idx) in zip(outs, stats)])
+        y_hats = []
+        for (_, mu, idx), (y_sym, _) in zip(stats, decoded):
+            _, cy, hy, wy = idx.shape
+            y_hats.append(
+                y_sym.view(1, hy, wy, cy).permute(0, 3, 1, 2).float() + mu)
+        return y_hats, torch.cat([bad for _, bad in decoded])
+
+    def _tiled_generate(self, y_hat, spatial_shape, tile: int, halo: int,
+                        as_uint8: bool) -> np.ndarray:
+        """The generator on latent tiles of `tile` with `halo` latents of
+        context, assembled on the host."""
+        ext = (tile + 2 * halo) * ENC_SCALE
+        recon = tiled_upsample_apply(
+            lambda lat: self._generate(lat, (ext, ext), as_uint8),
+            y_hat, scale=ENC_SCALE, tile=tile, halo=halo)
+        h, w = spatial_shape
+        return recon[:, :h, :w]
 
     @staticmethod
     def _device_decode_eligible(out: CompressionOutput) -> bool:
         """Batch 1 (unsharded, which is all the port reads)."""
         return int(out.batch_shape) == 1
 
-    @_codec_numerics
-    @torch.inference_mode()
-    def _device_decode_u8(self, outs):
-        """Enqueue the device decode of a batch of payloads: per image the
-        host rANS of z, the stream's upload and the shared synth_stats;
-        the y streams of all of them in one decode launch; per image
-        `generate` to uint8. Returns (NHWC uint8 images, the kernel's counts
-        of bad indices), all on the device; blocks on nothing."""
-        stats = [self._hyper_stats(o) for o in outs]
-        decoded = decode_scan_many([
-            DecodeJob(words_tensor(o.latents_encoded, self.device),
-                      _lanes(idx), self._rans_tables[0])
-            for o, (_, _, idx) in zip(outs, stats)])
-        imgs = []
-        for o, (_, mu, idx), (y_sym, _) in zip(outs, stats, decoded):
-            _, cy, hy, wy = idx.shape
-            y_hat = y_sym.view(1, hy, wy, cy).permute(0, 3, 1, 2).float() + mu
-            imgs.append(self._generate(y_hat, o.spatial_shape, True))
-        return imgs, torch.cat([bad for _, bad in decoded])
-
     @staticmethod
-    def _check_bad(bad: np.ndarray) -> None:
-        if int(bad.sum()):
-            raise RuntimeError(f"device decode read {int(bad.sum())} CDF row "
-                               f"indices outside the tables")
+    def _check_bad(bad: Optional[Fetch]) -> None:
+        """Raise if the device decoder read an index outside the tables
+        (waits for the fetch of its counts)."""
+        n = 0 if bad is None else int(bad.result().sum())
+        if n:
+            raise RuntimeError(f"device decode read {n} CDF row indices "
+                               f"outside the tables")
 
-    def _check_device_decode(self, outs, as_uint8: bool,
-                             device_decode: Optional[bool]) -> bool:
-        eligible = as_uint8 and all(self._device_decode_eligible(o)
-                                    for o in outs)
+    def _use_device_decode(self, outs,
+                           device_decode: Optional[bool]) -> bool:
+        eligible = all(self._device_decode_eligible(o) for o in outs)
         if device_decode and not eligible:
             raise ValueError("device_decode=True but a payload is not "
-                             "eligible: the device decoder covers uint8 "
-                             "output of single-image payloads")
+                             "eligible: the device decoder covers "
+                             "single-image payloads")
         if device_decode is None:
             return eligible and self.device.type == "cuda"
         return device_decode
 
-    def decompress(self, out: CompressionOutput, as_uint8: bool = False,
+    def decompress(self, out: CompressionOutput,
+                   tile_latents: Optional[int] = None,
+                   halo_latents: int = 16, as_uint8: bool = False,
                    device_decode: Optional[bool] = None) -> np.ndarray:
         """Reconstruction (N, H, W, 3): float in [0, 1], or uint8
-        round(x * 255) when `as_uint8`. device_decode: rANS-decode the
-        latents on the device; by default a CUDA codec does wherever it can
-        (uint8 output of a batch-1 payload) and a CPU codec takes the host
-        coder; True decodes on any device (the kernel's plain version on
-        the CPU) and raises on an ineligible payload. The result is the same
-        either way."""
-        if not self._tables_built:
-            self.build_tables()
-        if self._check_device_decode([out], as_uint8, device_decode):
-            (img,), bad = self._device_decode_u8([out])
-            img, bad = _Fetch(img), _Fetch(bad)
-            self._check_bad(bad.result())
-            return img.result()
-        return self._host_decode(out, as_uint8).cpu().numpy()
+        round(x * 255) when `as_uint8`. tile_latents: run the generator on
+        latent tiles of this size with `halo_latents` of context, its
+        output assembled on the host (on the H100 this does not lower the
+        peak: see ROADMAP.md section 1). device_decode: rANS-decode the
+        latents on the device; by default a CUDA codec does for a batch-1
+        payload, tiled or not, and a CPU codec takes the host coder; True
+        decodes on any device (the kernel's plain version on the CPU) and
+        raises on a larger batch. The result is the same either way."""
+        return self.decompress_many(
+            [out], as_uint8=as_uint8, tile_latents=tile_latents,
+            halo_latents=halo_latents, device_decode=device_decode)[0]
 
+    @_codec_numerics
+    @torch.inference_mode()
     def decompress_many(self, outs, as_uint8: bool = True,
                         as_numpy: bool = True,
+                        tile_latents: Optional[int] = None,
+                        halo_latents: int = 16,
                         device_decode: Optional[bool] = None) -> list:
         """Batch decompression. On the device decoder (chosen as in
         `decompress`) the y streams of all payloads are decoded in one
         launch, and every image's generation and copy to the host are
         enqueued before the host waits for the first. as_numpy=False
         returns NHWC tensors on the codec's device (after one wait for the
-        kernel's index checks)."""
+        kernel's index checks). tile_latents: each payload's generator run
+        on latent tiles as in `decompress` (numpy results)."""
         if not self._tables_built:
             self.build_tables()
-        if not self._check_device_decode(outs, as_uint8, device_decode):
-            imgs = [self._host_decode(o, as_uint8) for o in outs]
-            return [i.cpu().numpy() for i in imgs] if as_numpy else imgs
         if not outs:
             return []
-        imgs, bad = self._device_decode_u8(outs)
-        if not as_numpy:
-            self._check_bad(_Fetch(bad).result())
+        bad = None
+        if self._use_device_decode(outs, device_decode):
+            y_hats, bad = self._device_latents(outs)
+            bad = Fetch(bad)
+        else:
+            y_hats = [self._host_latents(o) for o in outs]
+        if tile_latents is not None:
+            imgs = [self._tiled_generate(y, o.spatial_shape, tile_latents,
+                                         halo_latents, as_uint8)
+                    for o, y in zip(outs, y_hats)]
+            self._check_bad(bad)
             return imgs
-        fetches = [_Fetch(img) for img in imgs]
-        self._check_bad(_Fetch(bad).result())
+        imgs = [self._generate(y, o.spatial_shape, as_uint8)
+                for o, y in zip(outs, y_hats)]
+        if not as_numpy:
+            self._check_bad(bad)
+            return imgs
+        fetches = [Fetch(img) for img in imgs]
+        self._check_bad(bad)
         return [img.result() for img in fetches]
+
+    @_codec_numerics
+    @torch.inference_mode()
+    def reconstruct(self, x) -> np.ndarray:
+        """Reconstruction without entropy coding (the reference's
+        `--reconstruct` mode): pad -> encode -> hard quantization ->
+        generate. x as in `compress`; returns NHWC float in [0, 1] on the
+        host."""
+        spatial_shape = tuple(int(s) for s in np.shape(x)[1:3])
+        y, _ = self.model.encode(self._model_input(x))
+        z_q = torch.floor(self.model.hyperprior.analyze(y) + 0.5)
+        mu, _ = self.model.hyperprior.synthesize(z_q)
+        y_q = torch.floor(y - mu + 0.5) + mu
+        return self._generate(y_q, spatial_shape, False).cpu().numpy()
 
     def compress_file(self, x, path: str) -> Tuple[float, float]:
         """Compress to a `.hfc` file; returns (actual_bpp, theoretical_bpp)."""

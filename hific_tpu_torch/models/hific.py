@@ -3,7 +3,8 @@
 Counterpart of the JAX package's `models/hific.py`: the training forward
 (`HiFiC.__call__`, here `forward`) and the codec-side methods (`encode`,
 `code_hyper`, `synth_stats`, `latent_symbols`, `compress_front`,
-`generate`). Tensors are NCHW, stored channels-last.
+`compress_front_from_latents`, `generate`). Tensors are NCHW, stored
+channels-last.
 """
 
 import math
@@ -110,7 +111,14 @@ class HiFiC(nn.Module):
     def compress_front(self, x):
         """x -> (padded latents y, z_sym int16, hyperlatent bits): every
         stage upstream of `synth_stats`."""
-        y, _ = self.encode(x)
+        return self.compress_front_from_latents(self.encode(x)[0])
+
+    def compress_front_from_latents(self, y):
+        """`compress_front` downstream of the encoder, on latents assembled
+        elsewhere (encode-side tiling): pads y to the hyperprior's factor
+        as `encode` does (a no-op on padded latents)."""
+        y = pad_factor(
+            y, 2 ** self.hyperprior.analysis_net.n_downsampling_layers)
         z_sym, hyper_bits = self.code_hyper(y)
         return y, z_sym, hyper_bits
 

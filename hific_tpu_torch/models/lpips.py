@@ -12,13 +12,16 @@ The lin heads are the calibrated ones packaged in `assets/` (a copy of the
 JAX package's). The backbone here is a seeded random initialisation, the
 one the JAX trainer uses under `--uncalibrated_lpips_ok`: the architecture
 is exact, the features are not perceptually calibrated. Carry calibrated
-or JAX parameters across with `weights.lpips_state_dict_from_jax`.
+or JAX parameters across with `weights.lpips_state_dict_from_jax`;
+`load_lpips` reads the two files the JAX package's evaluation CLIs take
+(a full LPIPS `.npz`, or a torchvision AlexNet `.features` state_dict).
 Parameters never train: gradients flow through LPIPS to the
 reconstruction, not into LPIPS.
 """
 
 import math
 import os
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -109,3 +112,34 @@ def default_lpips(seed: int = 0) -> LPIPS:
             getattr(model, f"lin{k}").copy_(
                 torch.from_numpy(lin[f"lin{k}"].astype(np.float32)))
     return model
+
+
+# torchvision AlexNet `.features` index of each backbone conv.
+_TORCHVISION_ALEX = (0, 3, 6, 8, 10)
+
+
+@torch.no_grad()
+def load_lpips(params_npz: Optional[str] = None,
+               backbone_path: Optional[str] = None) -> Tuple[LPIPS, bool]:
+    """(LPIPS, calibrated). params_npz: the JAX package's full LPIPS
+    parameter snapshot (`save_lpips_npz`, '/'-joined leaves), calibrated.
+    backbone_path: a torchvision AlexNet `.features` state_dict beside the
+    packaged lin heads, calibrated. Neither: `default_lpips()`, not
+    calibrated."""
+    from hific_tpu_torch.weights import lpips_state_dict_from_jax
+
+    model = default_lpips()
+    if params_npz is not None:
+        with np.load(params_npz) as z:
+            model.load_state_dict(
+                lpips_state_dict_from_jax({k: z[k] for k in z.files}))
+        return model, True
+    if backbone_path is not None:
+        state = torch.load(backbone_path, map_location="cpu",
+                           weights_only=True)
+        for k, idx in enumerate(_TORCHVISION_ALEX):
+            conv = getattr(model.backbone, f"conv{k + 1}")
+            conv.weight.copy_(state[f"{idx}.weight"])
+            conv.bias.copy_(state[f"{idx}.bias"])
+        return model, True
+    return model, False

@@ -3,11 +3,13 @@
 `resolve_device`: the card unless the caller names another device; no
 silent CPU. `fp32_numerics`: the settings a piece of device work states for
 itself, restored when it ends, so that one process can run the codec and
-the trainer (PyTorch keeps these flags process-wide).
+the trainer (PyTorch keeps these flags process-wide). `Fetch`: a device
+tensor's copy to the host, enqueued without waiting for it.
 """
 
 import contextlib
 
+import numpy as np
 import torch
 
 
@@ -38,3 +40,23 @@ def fp32_numerics(deterministic: bool):
     finally:
         (cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic,
          cudnn.benchmark) = saved
+
+
+class Fetch:
+    """A device tensor's copy to the host, enqueued now on the current
+    stream (into pinned memory) and waited for only by `result`."""
+
+    def __init__(self, t: torch.Tensor):
+        self._event = None
+        if t.device.type == "cuda":
+            self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self._host.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = t
+
+    def result(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.numpy()

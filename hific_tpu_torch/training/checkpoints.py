@@ -11,10 +11,14 @@ counterpart of the JAX package's `training/checkpoints.py`.
   `export_params_npz` layout (`p:<path>` leaves + `__config_json__`), so
   `hific_tpu.training.checkpoints.load_params_npz` loads what this package
   trained.
+- `resolve_eval_checkpoint`: the `-ckpt` argument of the evaluation CLIs ->
+  (config, state_dict). An Orbax checkpoint of the JAX trainer is refused
+  with the command that exports it to a `.npz`: this package never reads
+  Orbax.
 """
 
 import os
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,6 +29,7 @@ from hific_tpu_torch.weights import (
     NPZ_CONFIG_KEY,
     NPZ_LEAF_PREFIX,
     jax_params_from_model,
+    load_npz,
 )
 
 CONFIG_FILENAME = "config.json"
@@ -91,3 +96,37 @@ def export_params_npz(out_path: str, model: torch.nn.Module, config: Config
     os.makedirs(os.path.dirname(out_path), exist_ok=True)
     np.savez_compressed(out_path, **entries)
     return out_path
+
+
+def resolve_eval_checkpoint(checkpoint_arg: str
+                            ) -> Tuple[Config, Dict[str, torch.Tensor]]:
+    """An evaluation CLI's `-ckpt` argument -> (config, CPU state_dict).
+
+    A `.npz` file is an `export_params_npz` artifact (either package's).
+    A directory with `config.json` and `step_<N>.pt` files is this
+    package's trainer layout: the latest step's model weights. A
+    directory of `step_<N>/` subdirectories is an Orbax checkpoint of the
+    JAX trainer, which exits with the command that exports it."""
+    if os.path.isfile(checkpoint_arg) and checkpoint_arg.endswith(".npz"):
+        return load_npz(checkpoint_arg)
+    if not os.path.isdir(checkpoint_arg):
+        raise FileNotFoundError(f"no checkpoint at {checkpoint_arg} (expected "
+                                f"a params .npz file or a checkpoints "
+                                f"directory)")
+    if any(n.startswith("step_") and n[5:].isdigit()
+           and os.path.isdir(os.path.join(checkpoint_arg, n))
+           for n in os.listdir(checkpoint_arg)):
+        raise SystemExit(
+            f"{checkpoint_arg} is an Orbax checkpoint of the JAX trainer, "
+            f"which hific_tpu_torch does not read; export its parameters "
+            f"with `python -m hific_tpu.cli.export_params -ckpt "
+            f"{checkpoint_arg} -o params.npz` and pass the .npz")
+    config = load_config(checkpoint_arg)
+    if config is None:
+        raise FileNotFoundError(f"no {CONFIG_FILENAME} in {checkpoint_arg}")
+    path = latest_checkpoint(checkpoint_arg)
+    if path is None:
+        raise FileNotFoundError(f"no step_<N>.pt checkpoints in "
+                                f"{checkpoint_arg}")
+    state = restore_train_state(path, config, device="cpu")
+    return config, state.model.state_dict()

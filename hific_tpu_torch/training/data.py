@@ -1,5 +1,5 @@
-"""Training input pipeline; counterpart of the JAX package's
-`training/data.py` (`TrainDataset` with uint8 output, `prefetch`).
+"""Input pipelines; counterpart of the JAX package's `training/data.py`
+(`TrainDataset` with uint8 output, `EvalDataset`, `prefetch`).
 
 Random scale in [max(crop / short side, 0.75), 0.95], random crop to
 crop_size, horizontal flip; batches of uint8 NHWC crops (the train step
@@ -15,6 +15,8 @@ from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from hific_tpu_torch.utils.image_io import read_image
+
 IMG_EXTENSIONS = (".png", ".jpg", ".jpeg", ".bmp", ".ppm", ".webp")
 
 
@@ -28,11 +30,8 @@ def list_images(root: str) -> List[str]:
 
 
 def _load_image(path: str) -> Optional[np.ndarray]:
-    from PIL import Image  # no Pillow: ImportError, never "skip every file"
-
-    try:
-        with Image.open(path) as im:
-            return np.asarray(im.convert("RGB"), dtype=np.uint8)
+    try:  # no Pillow: ImportError, never "skip every file"
+        return read_image(path)
     except OSError:  # unreadable or corrupt file (UnidentifiedImageError)
         return None
 
@@ -90,6 +89,32 @@ class TrainDataset:
                     imgs.append(s[0])
                     bpps.append(s[1])
             yield np.stack(imgs), np.asarray(bpps, np.float32)
+
+
+class EvalDataset:
+    """Full-resolution evaluation images with their files' bpp and paths."""
+
+    def __init__(self, root_or_files, normalize: bool = False):
+        if isinstance(root_or_files, str):
+            self.files = list_images(root_or_files)
+        else:
+            self.files = list(root_or_files)
+        self.normalize = normalize
+
+    def __len__(self):
+        return len(self.files)
+
+    def __iter__(self) -> Iterator[Tuple[np.ndarray, float, str]]:
+        """(float32 (1, H, W, 3) in [0, 1] (or [-1, 1] when normalized),
+        source bpp, path) per readable file."""
+        for path in self.files:
+            img = _load_image(path)
+            if img is None:
+                continue
+            x = img.astype(np.float32) / 255.0
+            if self.normalize:
+                x = x * 2.0 - 1.0
+            yield x[None], _source_bpp(path, img.shape), path
 
 
 def prefetch(iterator, size: int = 4):

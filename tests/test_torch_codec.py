@@ -242,3 +242,37 @@ def test_many_code_every_stream_in_one_batch(tiny, monkeypatch):
         assert _hfc(out) == _hfc(port.compress(x))
         np.testing.assert_array_equal(
             r, port.decompress(out, as_uint8=True, device_decode=False))
+
+
+@pytest.mark.parametrize("as_uint8", [False, True], ids=["float", "uint8"])
+@pytest.mark.parametrize("shape", [(75, 93), (33, 47), (17, 130), (100, 61)])
+def test_hfc_bytes_equal_jax_at_sizes_not_multiples_of_16(tiny, shape,
+                                                          as_uint8):
+    """Sizes the encoder pads (to 16) and the hyperprior pads again (to
+    4 latents), down to one latent row: the port's `.hfc` bytes equal the
+    JAX `Codec`'s for float and uint8 input, and the uint8 reconstructions
+    are within one level (floats ~4e-6 apart round apart)."""
+    jax_codec, port = tiny
+    x = _smooth_image(*shape, seed=sum(shape))
+    if as_uint8:
+        x = (x * 255 + 0.5).astype(np.uint8)
+    out = port.compress(x)
+    assert tuple(out.spatial_shape) == shape
+    jax_out = jax_codec.compress(x)
+    assert _hfc(out) == _hfc(jax_out, jax_container)
+    got = port.decompress(out, as_uint8=True)
+    want = np.asarray(jax_codec.decompress(jax_out, as_uint8=True,
+                                           device_decode=False))
+    assert got.shape == want.shape == (1,) + shape + (3,)
+    assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+
+
+def test_reconstruct_matches_jax(tiny):
+    """`reconstruct` (no entropy coding) against the JAX `Codec`'s on a
+    size that is not a multiple of 16, within the codec's 1e-3."""
+    jax_codec, port = tiny
+    x = _smooth_image(75, 93, seed=12)
+    got = port.reconstruct(x)
+    want = np.asarray(jax_codec.reconstruct(x))
+    assert got.shape == want.shape == x.shape and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, atol=RECON_ATOL, rtol=0)
