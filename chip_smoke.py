@@ -6,9 +6,10 @@ Drives the port's paths at the flagship's full width: the codec round trip
 (image -> .hfc -> image) through `hific_tpu_torch.codec.Codec`, the batch
 codec (`compress_many` / `decompress_many` on the device rANS coders), a
 6 MP image whole and on tiles, the serving daemon `cli/serve.py` under
-concurrent clients, the compress and decompress CLIs, and compression
-training steps through the trainer `hific_tpu_torch.cli.train`; and holds
-every kernel of those paths against its plain PyTorch version:
+concurrent clients, the compress and decompress CLIs, and both stages of
+training through the trainer `hific_tpu_torch.cli.train` (compression
+steps, then GAN steps warmstarted from them); and holds every kernel of
+those paths against its plain PyTorch version:
 
 1. the card's name, power limit and count;
 2. builds the kernels from the sources in this checkout, all compilers
@@ -79,8 +80,21 @@ every kernel of those paths against its plain PyTorch version:
    finite losses, a nonzero gradient for every codec parameter, 29
    forward and 29 backward launches per step, the count of incoming
    gradients that were not channels-last, the warm step time and a
-   profile of one more step;
-9. prints the kernels' JSON line and, last, the device line.
+   profile of one more step; the final checkpoint is kept for phase 10;
+9. one tiny-config G step and then one D step (`hific_config`) on the card
+   against the same steps on the CPU's plain path (same weights, noise
+   and u): losses within 1e-4, every gradient within 1e-3 of its leaf's
+   largest, u after each step within 1e-5;
+10. four flagship-width G/D step pairs through the trainer with `-mt
+   compression_gan`, warmstarted from phase 8's checkpoint (batch 8 of
+   other seeded crops): each step checked as it is called (finite
+   losses; a nonzero gradient for every codec parameter in a G step and
+   no discriminator gradient after it; a nonzero gradient for every
+   discriminator parameter in a D step and the codec's parameters
+   unchanged by it; u changed by each call; 29 forward and 29 backward
+   launches a G step, 29 and 0 a D step), the warm G and D step times,
+   the peak device memory and a profile of one more pair;
+11. prints the kernels' JSON line and, last, the device line.
 
 Any failure exits non-zero; no phase catches an error. Needs one CUDA card.
 """
@@ -528,11 +542,13 @@ def train_crops(seed: int):
         yield batch, np.zeros(TRAIN_BATCH, np.float32)
 
 
-def train_flagship(card: str, n_norms: int):
-    """TRAIN_STEPS flagship-width compression steps through the trainer;
-    returns (launches of the forward and backward kernels, summary)."""
+def train_flagship(card: str, n_norms: int, exp_dir: str):
+    """TRAIN_STEPS flagship-width compression steps through the trainer,
+    its experiments under `exp_dir`; returns (launches of the forward and
+    backward kernels, summary, path of the final checkpoint)."""
     from hific_tpu_torch.cli import train as train_cli
     from hific_tpu_torch.ops import fused_norm
+    from hific_tpu_torch.training import checkpoints
     from hific_tpu_torch.training.train_step import make_train_step_g
 
     steps = []
@@ -555,33 +571,34 @@ def train_flagship(card: str, n_norms: int):
         steps.append((now, time.perf_counter(), loss, float(diag["q_rate"]),
                       counts))
 
-    with tempfile.TemporaryDirectory() as tmp:
-        args = train_cli.parse_args([
-            "--steps", str(TRAIN_STEPS), "-bs", str(TRAIN_BATCH),
-            "-crop", str(TRAIN_CROP), "--uncalibrated_lpips_ok",
-            "--device", "cuda", "--seed", str(SEED),
-            "--log_interval", "1000", "--save_interval", "1000",
-            "--experiments_dir", tmp])
-        crops = train_crops(SEED)  # made ahead: not in the step times
-        batches = [next(crops) for _ in range(TRAIN_STEPS + 1)]
-        fused_norm.KERNEL.launches = 0
-        fused_norm.BACKWARD_KERNEL.launches = 0
-        fused_norm.BACKWARD_KERNEL.g_copies = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state = train_cli.run(args, batches=iter(batches[:TRAIN_STEPS]),
-                              on_step=on_step)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        fwd = fused_norm.KERNEL.launches
-        bwd = fused_norm.BACKWARD_KERNEL.launches
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    args = train_cli.parse_args([
+        "--steps", str(TRAIN_STEPS), "-bs", str(TRAIN_BATCH),
+        "-crop", str(TRAIN_CROP), "--uncalibrated_lpips_ok",
+        "--device", "cuda", "--seed", str(SEED),
+        "--log_interval", "1000", "--save_interval", "1000",
+        "--experiments_dir", exp_dir])
+    crops = train_crops(SEED)  # made ahead: not in the step times
+    batches = [next(crops) for _ in range(TRAIN_STEPS + 1)]
+    fused_norm.KERNEL.launches = 0
+    fused_norm.BACKWARD_KERNEL.launches = 0
+    fused_norm.BACKWARD_KERNEL.g_copies = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = train_cli.run(args, batches=iter(batches[:TRAIN_STEPS]),
+                          on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd = fused_norm.KERNEL.launches
+    bwd = fused_norm.BACKWARD_KERNEL.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ckpt = checkpoints.latest_checkpoint(os.path.join(
+        exp_dir, f"{args.name}_compression_low", "checkpoints"))
 
-        # One more step under the profiler (not counted above).
-        step_fn = make_train_step_g(state.model.config, train_cli.make_lpips_fn(
-            args, next(state.model.parameters()).device))
-        batch = batches[-1][0]
-        step_ms, rows, busy_ms = profiled(lambda: step_fn(state, batch))
+    # One more step under the profiler (not counted above, not saved).
+    step_fn = make_train_step_g(state.model.config, train_cli.make_lpips_fn(
+        args, next(state.model.parameters()).device))
+    batch = batches[-1][0]
+    step_ms, rows, busy_ms = profiled(lambda: step_fn(state, batch))
 
     per_step = []
     prev = (0, 0, 0)
@@ -610,7 +627,215 @@ def train_flagship(card: str, n_norms: int):
         f"({busy_ms / step_ms:.0%}); ChannelNorm kernels {norm_ms:.2f} ms; "
         f"top kernels by device time:")
     print_top(rows, 12)
-    return fwd, bwd, {"warm_ms": warm_ms, "copies_per_step": per_step[-1][2]}
+    return fwd, bwd, {"warm_ms": warm_ms,
+                      "copies_per_step": per_step[-1][2]}, ckpt
+
+
+GAN_PAIRS = 4  # G/D step pairs of the flagship GAN phase
+
+
+def tiny_gan_steps_card_vs_cpu() -> str:
+    """One tiny-config G step and then one D step on the card (the kernels)
+    and on the CPU (the plain versions), same weights, noise and u: losses
+    within 1e-4, every gradient within 1e-3 of its leaf's largest
+    |gradient|, u after each step within 1e-5."""
+    import hific_tpu_torch.models.hyperprior as hyperprior_module
+    from hific_tpu_torch.config import hific_config
+    from hific_tpu_torch.training.train_step import (
+        create_train_state, make_train_step_d, make_train_step_g)
+
+    cfg = hific_config(latent_channels=8, n_residual_blocks=1,
+                       hyperlatent_filters=16, crop_size=64)
+    rng = np.random.RandomState(SEED + 1)
+    xg, xd = (rng.randint(0, 256, (2, 64, 64, 3)).astype(np.uint8)
+              for _ in range(2))
+    noise = {}
+
+    def shared_noise(t, generator):
+        key = tuple(t.shape)
+        if key not in noise:
+            noise[key] = torch.from_numpy(
+                rng.uniform(-0.5, 0.5, key).astype(np.float32))
+        return t + noise[key].to(t.device)
+
+    def grads(module):
+        return {n: p.grad.cpu() for n, p in module.named_parameters()}
+
+    def us(state):
+        return {n: b.cpu().clone() for n, b in state.disc.named_buffers()}
+
+    runs = []
+    saved = hyperprior_module.quantize_noise
+    hyperprior_module.quantize_noise = shared_noise
+    try:
+        for device in ("cpu", "cuda"):
+            state = create_train_state(cfg, SEED, device)
+            diag_g = make_train_step_g(cfg)(state, xg)
+            out = {"losses": [float(diag_g["weighted_compression_loss"]),
+                              float(diag_g["gen_loss"])],
+                   "grads": grads(state.model), "u": us(state)}
+            diag_d = make_train_step_d(cfg)(state, xd)
+            out["losses"].append(float(diag_d["disc_loss"]))
+            out["grads"].update(
+                {f"disc.{n}": g for n, g in grads(state.disc).items()})
+            out["u"].update({f"d.{n}": u for n, u in us(state).items()})
+            runs.append(out)
+    finally:
+        hyperprior_module.quantize_noise = saved
+    cpu, card = runs
+    loss_rel = max(abs(b - a) / abs(a)
+                   for a, b in zip(cpu["losses"], card["losses"]))
+    grad_rel = max(float((card["grads"][n] - g).abs().max()
+                         / g.abs().max().clamp_min(1e-30))
+                   for n, g in cpu["grads"].items())
+    u_err = max(float((card["u"][n] - u).abs().max())
+                for n, u in cpu["u"].items())
+    if not (loss_rel <= 1e-4 and grad_rel <= 1e-3 and u_err <= 1e-5):
+        raise AssertionError(
+            f"tiny G and D steps, card vs CPU: losses off by {loss_rel:.2e}, "
+            f"gradients by {grad_rel:.2e} of their leaf's largest, u by "
+            f"{u_err:.2e}")
+    return (f"tiny G step then D step, card vs CPU plain path: losses "
+            f"(G loss, gen_loss, disc_loss) rel diff {loss_rel:.2e} (limit "
+            f"1e-4), worst gradient leaf {grad_rel:.2e} of its largest "
+            f"(limit 1e-3), u max abs diff {u_err:.2e} (limit 1e-5)")
+
+
+def train_gan_flagship(card: str, n_norms: int, warmstart: str,
+                       exp_dir: str):
+    """GAN_PAIRS flagship-width G/D step pairs through the trainer, with
+    `-mt compression_gan` warmstarted from the compression checkpoint
+    `warmstart`. Each step is checked as it is called: finite losses; in a
+    G step a nonzero gradient for every codec parameter and no
+    discriminator gradient; in a D step a nonzero gradient for every
+    discriminator parameter and the codec's parameters unchanged; u changed
+    by each call; n_norms forward and n_norms (G) or 0 (D) backward
+    launches. Returns (forward and backward launches, summary)."""
+    from hific_tpu_torch.cli import train as train_cli
+    from hific_tpu_torch.ops import fused_norm
+
+    def launches():
+        return (fused_norm.KERNEL.launches,
+                fused_norm.BACKWARD_KERNEL.launches)
+
+    def nonzero(module):
+        return [n for n, p in module.named_parameters()
+                if p.grad is None or not bool(p.grad.ne(0).any())]
+
+    records = []
+
+    def checked(make, kind):
+        def factory(*args, **kw):
+            step = make(*args, **kw)
+
+            def run_step(state, x):
+                u0 = [b.clone() for b in state.disc.buffers()]
+                codec0 = ([p.detach().clone()
+                           for p in state.model.parameters()]
+                          if kind == "D" else None)
+                c0 = launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                diag = step(state, x)
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t0)
+                delta = tuple(b - a for a, b in zip(c0, launches()))
+                losses = {k: float(v) for k, v in diag.items()
+                          if k in ("disc_loss", "gen_loss",
+                                   "weighted_compression_loss")}
+                faults = [f"{k} {v}" for k, v in losses.items()
+                          if not math.isfinite(v)]
+                if kind == "G":
+                    dead = nonzero(state.model)
+                    faults += [f"no gradient for {len(dead)} codec "
+                               f"parameters, e.g. {dead[:3]}"] if dead else []
+                    if any(p.grad is not None
+                           for p in state.disc.parameters()):
+                        faults.append("a discriminator .grad after a G step")
+                    want = (n_norms, n_norms)
+                else:
+                    dead = nonzero(state.disc)
+                    faults += [f"no gradient for {dead}"] if dead else []
+                    if not all(torch.equal(p, q) for p, q in
+                               zip(state.model.parameters(), codec0)):
+                        faults.append("the D step moved codec parameters")
+                    want = (n_norms, 0)
+                if any(torch.equal(a, b)
+                       for a, b in zip(u0, state.disc.buffers())):
+                    faults.append("u unchanged by the call")
+                if delta != want:
+                    faults.append(f"norm launches {delta}, expected {want}")
+                if faults:
+                    raise AssertionError(f"GAN {kind} step {state.step}: "
+                                         + "; ".join(faults))
+                records.append((kind, ms, losses, delta))
+                return diag
+            return run_step
+        return factory
+
+    args = train_cli.parse_args([
+        "-mt", "compression_gan", "--warmstart_ckpt", warmstart,
+        "--steps", str(TRAIN_STEPS + GAN_PAIRS), "-bs", str(TRAIN_BATCH),
+        "-crop", str(TRAIN_CROP), "--uncalibrated_lpips_ok",
+        "--device", "cuda", "--seed", str(SEED),
+        "--log_interval", "1000", "--save_interval", "1000",
+        "--experiments_dir", exp_dir])
+    crops = train_crops(SEED + 1)  # made ahead: not in the step times
+    batches = [next(crops) for _ in range(2 * GAN_PAIRS + 2)]
+    make_g, make_d = train_cli.make_train_step_g, train_cli.make_train_step_d
+    train_cli.make_train_step_g = checked(make_g, "G")
+    train_cli.make_train_step_d = checked(make_d, "D")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        fused_norm.KERNEL.launches = 0
+        fused_norm.BACKWARD_KERNEL.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = train_cli.run(args, batches=iter(batches[:2 * GAN_PAIRS]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        train_cli.make_train_step_g, train_cli.make_train_step_d = \
+            make_g, make_d
+    fwd, bwd = launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    kinds = "".join(r[0] for r in records)
+    if kinds != "GD" * GAN_PAIRS or state.step != TRAIN_STEPS + GAN_PAIRS \
+            or state.disc_steps != GAN_PAIRS:
+        raise AssertionError(f"GAN phase ran steps {kinds!r} to step "
+                             f"{state.step}, D count {state.disc_steps}")
+    for i, (kind, ms, losses, delta) in enumerate(records):
+        log(f"GAN {kind} step {i // 2 + 1}: {ms:.1f} ms, "
+            + ", ".join(f"{k} {v:.4f}" for k, v in losses.items())
+            + f", launches fwd {delta[0]} bwd {delta[1]}")
+    g_ms = [r[1] for r in records if r[0] == "G"][1:]
+    d_ms = [r[1] for r in records if r[0] == "D"][1:]
+    summary = {"warm_g_step_ms": sum(g_ms) / len(g_ms),
+               "warm_d_step_ms": sum(d_ms) / len(d_ms),
+               "g_step_ms": [r[1] for r in records if r[0] == "G"],
+               "d_step_ms": [r[1] for r in records if r[0] == "D"],
+               "peak_gib": peak, "wall_s": wall}
+    log(f"{GAN_PAIRS} flagship GAN pairs (bs {TRAIN_BATCH}, {TRAIN_CROP}x"
+        f"{TRAIN_CROP}, fp32, TF32 off, warmstarted from "
+        f"{os.path.basename(warmstart)}) in {wall:.1f} s through the "
+        f"trainer (warmstart load, steps, final checkpoint); warm G step {summary['warm_g_step_ms']:.1f} ms, warm "
+        f"D step {summary['warm_d_step_ms']:.1f} ms (means of pairs 2-"
+        f"{GAN_PAIRS}, host clock after synchronize); peak device memory "
+        f"{peak:.1f} GiB ({card})")
+
+    # One more pair under the profiler (not counted above, not saved).
+    device = next(state.model.parameters()).device
+    step_g = make_g(state.model.config, train_cli.make_lpips_fn(args, device))
+    step_d = make_d(state.model.config)
+    (xg, _), (xd, _) = batches[-2:]
+    pair_ms, rows, busy_ms = profiled(
+        lambda: (step_g(state, xg), step_d(state, xd)))
+    summary.update(profiled_pair_ms=pair_ms, profiled_busy_ms=busy_ms)
+    log(f"profiled G+D pair: wall {pair_ms:.1f} ms, device busy "
+        f"{busy_ms:.1f} ms ({busy_ms / pair_ms:.0%}); top kernels by device "
+        f"time:")
+    print_top(rows, 12)
+    return fwd, bwd, summary
 
 
 def event_ms(fn, reps: int) -> float:
@@ -1708,9 +1933,19 @@ def main() -> int:
     # Phase 7: a tiny training step, card against the CPU's plain path.
     log(tiny_step_card_vs_cpu())
 
-    # Phase 8: flagship-width training steps through the trainer.
-    torch.cuda.reset_peak_memory_stats()
-    fwd_launches, bwd_launches, train = train_flagship(card, len(train_shapes))
+    with tempfile.TemporaryDirectory() as train_dir:
+        # Phase 8: flagship-width training steps through the trainer.
+        torch.cuda.reset_peak_memory_stats()
+        fwd_launches, bwd_launches, train, ckpt = train_flagship(
+            card, len(train_shapes), train_dir)
+
+        # Phase 9: a tiny G step and D step, card against the CPU's plain
+        # path; phase 10: the GAN stage at flagship width through the
+        # trainer, warmstarted from phase 8's checkpoint.
+        log(tiny_gan_steps_card_vs_cpu())
+        gan_fwd, gan_bwd, gan = train_gan_flagship(
+            card, len(train_shapes), ckpt, train_dir)
+    print("gan:", json.dumps(gan), flush=True)
 
     log(f"total wall time {time.perf_counter() - T_START:.1f} s ({card})")
     print(json.dumps({"kernels": [{
@@ -1719,12 +1954,13 @@ def main() -> int:
         "source": "hific_tpu_torch/csrc/channel_norm.cu",
         "replaces": "hific_tpu/ops/pallas_norm.py:49",
         "launches": (launches + fwd_launches + serve_counts[0]
-                     + tile_counts[0] + cli_counts[0]),
+                     + tile_counts[0] + cli_counts[0] + gan_fwd),
         "launches_by_path": {"codec_round_trip": launches,
                              "serve": serve_counts[0],
                              "tiling": tile_counts[0],
                              "cli": cli_counts[0],
-                             "train_steps": fwd_launches},
+                             "train_steps": fwd_launches,
+                             "gan_train_steps": gan_fwd},
         "max_abs_err": summary["max_abs_err"],
         "ms": summary["ms"],
         "plain_ms": summary["plain_ms"],
@@ -1739,8 +1975,9 @@ def main() -> int:
         "route": "cuda",
         "source": "hific_tpu_torch/csrc/channel_norm.cu",
         "replaces": "hific_tpu/ops/pallas_norm.py:74",
-        "launches": bwd_launches,
-        "launches_by_path": {"train_steps": bwd_launches},
+        "launches": bwd_launches + gan_bwd,
+        "launches_by_path": {"train_steps": bwd_launches,
+                             "gan_train_steps": gan_bwd},
         "max_abs_err": bwd_summary["max_abs_err"],
         "ms": bwd_summary["ms"],
         "plain_ms": bwd_summary["plain_ms"],

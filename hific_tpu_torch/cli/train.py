@@ -1,24 +1,41 @@
-"""Training CLI of the port: the compression stage (rate + MSE + LPIPS).
+"""Training CLI of the port, both stages of HiFiC's recipe.
 
-    python -m hific_tpu_torch.cli.train -d data/openimages --regime low \
-        --steps 1000000 --uncalibrated_lpips_ok
+    python -m hific_tpu_torch.cli.train -mt compression \
+        -d data/openimages --regime low --steps 200000 \
+        --uncalibrated_lpips_ok
+    python -m hific_tpu_torch.cli.train -mt compression_gan \
+        -d data/openimages --regime low --steps 400000 \
+        --uncalibrated_lpips_ok --warmstart_ckpt \
+        experiments/hific_tpu_torch_v0.1_compression_low/checkpoints/step_200000.pt
 
-Counterpart of the JAX package's `cli/train.py` on its `-mt compression`
-path: config from the flags, seeded random weights or a restored
-checkpoint, the compression step of `training/train_step.py` over uint8
-crops, logs every `--log_interval` steps and checkpoints every
-`--save_interval` and at the end. Steps are absolute: a resumed run trains
-up to `--steps` in all. Runs on the card unless `--device cpu`.
+Counterpart of the JAX package's `cli/train.py`: config from the flags,
+seeded random weights or a restored checkpoint, then the steps of
+`training/train_step.py` over uint8 crops. `-mt compression` trains rate +
+MSE + LPIPS; `-mt compression_gan` (`hific_config`) adds the conditional
+discriminator, alternating one G step with `discriminator_steps` D steps
+on distinct batches, and is started from a compression run with
+`--warmstart_ckpt`. Every `--log_interval` G steps the scalars go to
+`<exp>/tensorboard/metrics.jsonl` (and TensorBoard where it imports), and
+with `--eval_dataset_path` one fixed held-out batch is evaluated (`test/`
+scalars, `<exp>/reconstructions/step_<N>.png`). Checkpoints every
+`--save_interval` G steps and at the end, each after the D steps of its G
+step, so a resume continues exactly as the run would have; when `run`'s
+batches run out between a G step and its D steps, the final checkpoint
+lacks those D steps, a resume from it starts with a G step, and the
+trainer says so in a warning. Steps are
+absolute: a resumed or warmstarted run trains up to `--steps` in all.
+Runs on the card unless `--device cpu`.
 
 `run` takes any iterator of (uint8 NHWC batch, bpp) pairs in place of the
-dataset, so a caller can drive the trainer with its own crops. The LPIPS
-backbone is the seeded random one (`models/lpips.py`); without
-`--uncalibrated_lpips_ok` the CLI refuses it, as the JAX CLI does, and
-`--no_lpips` drops the perceptual term.
+dataset, so a caller can drive the trainer with its own crops. LPIPS loads
+local files only (`--lpips_weights`, `--lpips_backbone_path`,
+`--lpips_lin_path`); without a calibrated backbone it is the seeded
+random one (`models/lpips.py`), which the CLI refuses without
+`--uncalibrated_lpips_ok`, as the JAX CLI does; `--no_lpips` drops the
+perceptual term.
 """
 
 import argparse
-import json
 import logging
 import os
 import sys
@@ -27,26 +44,34 @@ from typing import Callable, Iterator, Optional
 
 import torch
 
-from hific_tpu_torch.config import mse_lpips_config
-from hific_tpu_torch.models.lpips import default_lpips
+from hific_tpu_torch.config import ModelTypes, hific_config, mse_lpips_config
+from hific_tpu_torch.models.lpips import load_lpips
 from hific_tpu_torch.runtime import resolve_device
 from hific_tpu_torch.training import checkpoints
 from hific_tpu_torch.training.data import TrainDataset, prefetch
 from hific_tpu_torch.training.train_step import (
     TrainState,
     create_train_state,
+    make_eval_step,
+    make_train_step_d,
     make_train_step_g,
 )
+from hific_tpu_torch.utils.logging import MetricWriter, save_side_by_side
 
 LOG = logging.getLogger("hific_tpu_torch.train")
 
 
 def parse_args(argv=None):
-    p = argparse.ArgumentParser(description="Train HiFiC's compression "
-                                "stage (PyTorch port)")
+    p = argparse.ArgumentParser(description="Train HiFiC (PyTorch port)")
+    p.add_argument("-mt", "--model_type", default=ModelTypes.COMPRESSION,
+                   choices=[ModelTypes.COMPRESSION,
+                            ModelTypes.COMPRESSION_GAN])
     p.add_argument("-regime", "--regime", default="low",
                    choices=["low", "med", "high"])
     p.add_argument("-d", "--dataset_path", default="data/openimages")
+    p.add_argument("--eval_dataset_path", default=None,
+                   help="held-out images: one fixed batch of crops is "
+                        "evaluated every log_interval")
     p.add_argument("-name", "--name", default="hific_tpu_torch_v0.1")
     p.add_argument("-bs", "--batch_size", type=int, default=8)
     p.add_argument("-steps", "--steps", type=int, default=int(1e6))
@@ -60,13 +85,26 @@ def parse_args(argv=None):
     p.add_argument("--hyperlatent_filters", type=int, default=320)
     p.add_argument("--no_lpips", action="store_true",
                    help="train without the perceptual term (k_P * LPIPS)")
+    p.add_argument("--lpips_weights", default=None,
+                   help="full LPIPS parameter .npz (the JAX package's "
+                        "save_lpips_npz layout); calibrated")
+    p.add_argument("--lpips_lin_path", default=None,
+                   help="LPIPS v0.1 lin-head weights (alex.pth); defaults "
+                        "to the packaged calibrated heads")
+    p.add_argument("--lpips_backbone_path", default=None,
+                   help="torchvision AlexNet .features state_dict (.pth); "
+                        "without it (or --lpips_weights) the backbone is a "
+                        "seeded random init, not perceptually calibrated")
     p.add_argument("--uncalibrated_lpips_ok", action="store_true",
                    help="accept the seeded random LPIPS backbone (lin heads "
                         "calibrated, backbone not); without it the CLI "
                         "refuses to train on LPIPS")
     p.add_argument("--log_interval", type=int, default=1000)
     p.add_argument("--save_interval", type=int, default=50000)
-    p.add_argument("--warmstart_ckpt", default=None)
+    p.add_argument("--warmstart_ckpt", default=None,
+                   help="step_<N>.pt of another run (a compression run for "
+                        "-mt compression_gan): its codec, optimizer and "
+                        "step; the discriminator starts fresh")
     p.add_argument("--resume_ckpt", default=None)
     p.add_argument("--experiments_dir", default="experiments")
     p.add_argument("--device", default=None,
@@ -76,7 +114,7 @@ def parse_args(argv=None):
 
 
 def build_config(a):
-    return mse_lpips_config(
+    kw = dict(
         name=a.name, regime=a.regime, batch_size=a.batch_size,
         n_steps=a.steps, learning_rate=a.learning_rate,
         crop_size=a.crop_size, normalize_input_image=a.normalize_input_image,
@@ -85,6 +123,9 @@ def build_config(a):
         latent_channels=a.latent_channels,
         hyperlatent_filters=a.hyperlatent_filters,
         log_interval=a.log_interval, save_interval=a.save_interval)
+    if a.model_type == ModelTypes.COMPRESSION_GAN:
+        return hific_config(**kw)
+    return mse_lpips_config(**kw)
 
 
 def make_lpips_fn(a, device) -> Optional[Callable]:
@@ -92,20 +133,31 @@ def make_lpips_fn(a, device) -> Optional[Callable]:
     if a.no_lpips:
         LOG.warning("--no_lpips: training rate + MSE only")
         return None
-    if not a.uncalibrated_lpips_ok:
+    lpips, calibrated = load_lpips(a.lpips_weights, a.lpips_backbone_path,
+                                   a.lpips_lin_path, seed=a.seed)
+    if not calibrated and not a.uncalibrated_lpips_ok:
         raise SystemExit(
             "The LPIPS backbone here is a seeded RANDOM init (lin heads "
-            "calibrated, backbone not). Pass --uncalibrated_lpips_ok to "
+            "calibrated, backbone not). Pass --lpips_backbone_path or "
+            "--lpips_weights for true LPIPS, --uncalibrated_lpips_ok to "
             "train on it knowingly, or --no_lpips to drop the term.")
-    lpips = default_lpips(a.seed).to(device, memory_format=torch.channels_last)
+    lpips = lpips.to(device, memory_format=torch.channels_last)
     return lambda x_gen, x_real: lpips(x_gen, x_real, normalize=True)
+
+
+def _nhwc(t: torch.Tensor, normalized: bool):
+    """NCHW device tensor -> NHWC numpy in [0, 1]."""
+    if normalized:
+        t = (t + 1.0) / 2.0
+    return t.permute(0, 2, 3, 1).cpu().numpy()
 
 
 def run(a, batches: Optional[Iterator] = None,
         on_step: Optional[Callable] = None) -> TrainState:
     """Train per the parsed flags `a` over `batches` (the dataset at
-    --dataset_path when None); on_step(state, diagnostics) after each step.
-    Returns the final state, checkpointed."""
+    --dataset_path when None); on_step(state, diagnostics) after each G
+    and each D step (a D step's diagnostics hold `disc_loss`). Returns the
+    final state, checkpointed."""
     config = build_config(a)
     device = resolve_device(a.device)
     exp_dir = os.path.join(a.experiments_dir,
@@ -115,8 +167,10 @@ def run(a, batches: Optional[Iterator] = None,
     if a.resume_ckpt or a.warmstart_ckpt:
         state = checkpoints.restore_train_state(
             a.resume_ckpt or a.warmstart_ckpt, config, device,
-            warmstart=a.resume_ckpt is None)
-        LOG.info("restored step %d", state.step)
+            warmstart=a.resume_ckpt is None, seed=a.seed)
+        LOG.info("%s %s at step %d",
+                 "resumed" if a.resume_ckpt else "warmstarted from",
+                 a.resume_ckpt or a.warmstart_ckpt, state.step)
     else:
         state = create_train_state(config, a.seed, device)
     if state.step >= config.n_steps:
@@ -125,33 +179,78 @@ def run(a, batches: Optional[Iterator] = None,
                          f"absolute)")
     n_params = sum(p.numel() for p in state.model.parameters())
     LOG.info("codec parameters: %.1fM on %s", n_params / 1e6, device)
-    step_fn = make_train_step_g(config, make_lpips_fn(a, device))
+    lpips_fn = make_lpips_fn(a, device)
+    step_g = make_train_step_g(config, lpips_fn)
+    step_d = make_train_step_d(config) if config.use_discriminator else None
+    d_per_g = config.discriminator_steps if step_d is not None else 0
     if batches is None:
         dataset = TrainDataset(a.dataset_path, config.crop_size, a.seed)
         batches = prefetch(dataset.batches(config.batch_size), size=4)
 
-    metrics_path = os.path.join(exp_dir, "metrics.jsonl")
+    eval_fn = None
+    if a.eval_dataset_path:
+        # One fixed held-out batch and a fixed noise seed: eval curves
+        # comparable across steps and runs.
+        eval_ds = TrainDataset(a.eval_dataset_path, config.crop_size,
+                               a.seed + 1)
+        eval_batch, _ = next(eval_ds.batches(config.batch_size,
+                                             num_workers=1))
+        eval_fn = make_eval_step(config, lpips_fn)
+        recon_dir = os.path.join(exp_dir, "reconstructions")
+        os.makedirs(recon_dir, exist_ok=True)
+
+    writer = MetricWriter(os.path.join(exp_dir, "tensorboard"))
     t0, last_step = time.perf_counter(), state.step
-    with open(metrics_path, "a") as metrics:
+    d_pending = 0  # D steps still to take after the last G step
+    try:
         for x, _ in batches:
-            diagnostics = step_fn(state, x)
+            if d_pending:
+                diag = step_d(state, x)
+                d_pending -= 1
+            else:
+                diag = diagnostics = step_g(state, x)
+                d_pending = d_per_g
             if on_step is not None:
-                on_step(state, diagnostics)
-            if state.step % config.log_interval == 1:
+                on_step(state, diag)
+            if d_pending:
+                continue
+            # The end of a G step's cycle: log, save, stop.
+            step = state.step
+            if step % config.log_interval == 1:
                 scalars = {k: float(v) for k, v in diagnostics.items()}
                 scalars["images_per_sec"] = (
-                    (state.step - last_step) * config.batch_size
+                    (step - last_step) * config.batch_size * (1 + d_per_g)
                     / max(time.perf_counter() - t0, 1e-9))
-                metrics.write(json.dumps({"step": state.step, **scalars})
-                              + "\n")
+                writer.write(step, scalars, prefix="train/")
                 LOG.info("step %d | loss %.3f | q_bpp %.3f | %.1f img/s",
-                         state.step, scalars["weighted_compression_loss"],
+                         step, scalars["weighted_compression_loss"],
                          scalars["q_rate"], scalars["images_per_sec"])
-                t0, last_step = time.perf_counter(), state.step
-            if state.step % config.save_interval == 0:
+                if eval_fn is not None:
+                    noise = torch.Generator(device=device).manual_seed(
+                        a.seed + 2)
+                    ediag, einter = eval_fn(state, eval_batch, noise)
+                    writer.write(step, {k: float(v) for k, v in ediag.items()},
+                                 prefix="test/")
+                    x_in = _nhwc(einter.input_image,
+                                 config.normalize_input_image)
+                    recon = _nhwc(einter.reconstruction,
+                                  config.normalize_input_image)
+                    writer.write_images(step, {"test/input": x_in,
+                                               "test/reconstruction": recon})
+                    save_side_by_side(
+                        os.path.join(recon_dir, f"step_{step}.png"),
+                        x_in, recon)
+                t0, last_step = time.perf_counter(), step
+            if step % config.save_interval == 0:
                 checkpoints.save_checkpoint(ckpt_dir, state, config)
-            if state.step >= config.n_steps:
+            if step >= config.n_steps:
                 break
+    finally:
+        writer.close()
+    if d_pending:
+        LOG.warning("the batches ran out %d D step(s) short of step %d's "
+                    "cycle: a resume from its checkpoint starts with a G "
+                    "step", d_pending, state.step)
     path = checkpoints.save_checkpoint(ckpt_dir, state, config)
     LOG.info("final checkpoint %s", path)
     return state

@@ -2,9 +2,8 @@
 
 Kept field for field so that an artifact's `__config_json__` (written by the
 JAX package's `export_params_npz`) parses unchanged with `Config.from_json`.
-The codec and the compression trainer read it; the fields of the GAN stage
-(`discriminator_steps`, `beta`, `gan_loss_type`) ride along so that configs
-round-trip.
+The codec and the trainer read it, both stages: `mse_lpips_config` is the
+compression stage's, `hific_config` the GAN stage's.
 """
 
 import dataclasses
@@ -129,4 +128,13 @@ class Config:
 def mse_lpips_config(**kw) -> Config:
     """Rate + MSE + LPIPS, no discriminator: the first training stage."""
     kw.setdefault("model_type", ModelTypes.COMPRESSION)
+    return Config(**kw)
+
+
+def hific_config(**kw) -> Config:
+    """The full generative loss: one discriminator step after each
+    generator step, non-saturating GAN loss (the second training stage)."""
+    kw.setdefault("model_type", ModelTypes.COMPRESSION_GAN)
+    kw.setdefault("discriminator_steps", 1)
+    kw.setdefault("gan_loss_type", "non_saturating")
     return Config(**kw)

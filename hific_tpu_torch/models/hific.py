@@ -1,10 +1,15 @@
-"""HiFiC facade: Encoder -> Hyperprior -> Generator.
+"""HiFiC facade: Encoder -> Hyperprior -> Generator (+ Discriminator).
 
 Counterpart of the JAX package's `models/hific.py`: the training forward
-(`HiFiC.__call__`, here `forward`) and the codec-side methods (`encode`,
+(`HiFiC.__call__`, here `forward`), the codec-side methods (`encode`,
 `code_hyper`, `synth_stats`, `latent_symbols`, `compress_front`,
-`compress_front_from_latents`, `generate`). Tensors are NCHW, stored
-channels-last.
+`compress_front_from_latents`, `generate`) and `discriminator_forward`.
+Tensors are NCHW, stored channels-last.
+
+The discriminator is a module of its own, not a submodule of `HiFiC`: the
+codec's `state_dict` (and so `export_params_npz`, `Codec` and a
+compression checkpoint) holds the codec only, as the JAX package's
+`split_params` takes the discriminator out of the codec tree.
 """
 
 import math
@@ -15,10 +20,11 @@ from torch import nn
 
 from hific_tpu_torch.config import Config
 from hific_tpu_torch.models.density import HyperlatentDensity, latent_likelihood
+from hific_tpu_torch.models.discriminator import Discriminator
 from hific_tpu_torch.models.encoder import Encoder
 from hific_tpu_torch.models.generator import Generator
 from hific_tpu_torch.models.hyperprior import HyperInfo, Hyperprior
-from hific_tpu_torch.models.layers import Conv, ConvTranspose
+from hific_tpu_torch.models.layers import Conv, ConvTranspose, SNConv
 from hific_tpu_torch.ops.padding import pad_factor
 
 
@@ -28,6 +34,13 @@ class Intermediates(NamedTuple):
     latents_quantized: torch.Tensor
     n_bpp: torch.Tensor            # differential-entropy estimate
     q_bpp: torch.Tensor            # Shannon-entropy estimate
+
+
+class DiscOut(NamedTuple):
+    d_real: torch.Tensor
+    d_gen: torch.Tensor
+    d_real_logits: torch.Tensor
+    d_gen_logits: torch.Tensor
 
 
 def _bits(likelihood) -> torch.Tensor:
@@ -134,18 +147,39 @@ class HiFiC(nn.Module):
         return torch.clamp(r, 0.0, 1.0)
 
 
+def discriminator_forward(intermediates: Intermediates, disc: Discriminator,
+                          train_generator: bool, update_stats: bool = True
+                          ) -> DiscOut:
+    """Real and generated images through the conditional discriminator in
+    one pass, real first (so `u` advances once a call), on the detached
+    latents; the generated images are detached unless `train_generator`."""
+    x_gen = intermediates.reconstruction
+    if not train_generator:
+        x_gen = x_gen.detach()
+    d_in = torch.cat([intermediates.input_image, x_gen], dim=0)
+    latents = intermediates.latents_quantized.detach()
+    d_out, logits = disc(d_in, torch.cat([latents, latents], dim=0),
+                         update_stats)
+    d_out, logits = d_out.squeeze(-1), logits.squeeze(-1)
+    n = d_out.shape[0] // 2
+    return DiscOut(d_out[:n], d_out[n:], logits[:n], logits[n:])
+
+
 @torch.no_grad()
-def init_random_(model: HiFiC, generator: torch.Generator) -> HiFiC:
-    """Seeded random weights, drawn like the JAX package's initializers:
-    conv weights N(0, 1/fan_in), zero biases, unit norm scales, and the
-    density's b ~ U(-0.5, 0.5) beside its constant H and zero a."""
+def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Seeded random weights of a `HiFiC` or a `Discriminator`, drawn like
+    the JAX package's initializers: conv weights N(0, 1/fan_in), zero
+    biases, unit norm scales, the density's b ~ U(-0.5, 0.5) beside its
+    constant H and zero a, and each SNConv's u ~ N(0, 1)."""
     for m in model.modules():
-        if isinstance(m, (Conv, ConvTranspose)):
+        if isinstance(m, (Conv, ConvTranspose, SNConv)):
             w = m.weight
             in_features = w.shape[0] if isinstance(m, ConvTranspose) else w.shape[1]
             fan_in = in_features * w.shape[2] * w.shape[3]
             w.copy_(torch.randn(w.shape, generator=generator) / math.sqrt(fan_in))
             m.bias.zero_()
+            if isinstance(m, SNConv):
+                m.u.copy_(torch.randn(m.u.shape, generator=generator))
         elif isinstance(m, HyperlatentDensity):
             for _, a, b in m.layers():
                 a.zero_()

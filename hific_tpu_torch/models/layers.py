@@ -4,7 +4,8 @@ Counterparts of the JAX package's `models/layers.py`. Parameter names follow
 its tree (`<name>/Conv_0/kernel` becomes `<name>.weight`; see `weights.py`),
 and the arithmetic is torch's own: a reflect pad then a VALID `F.conv2d`,
 zero padding inside `F.conv2d`, and `F.conv_transpose2d` for the
-transposed convolutions.
+transposed convolutions. `SNConv` is the discriminator's spectrally
+normalised conv, with the JAX package's power iteration written out.
 """
 
 import torch
@@ -76,3 +77,52 @@ class Norm(nn.Module):
     def forward(self, x):
         return channel_norm_fused(x, self.gamma, self.beta,
                                   act=self.activation)
+
+
+# Every SNConv of the discriminator: 4x4, stride 2, reflect pad 1, and
+# the JAX package's l2-normalisation epsilon.
+SN_KERNEL_SIZE = 4
+SN_STRIDE = 2
+SN_PADDING = 1
+SN_EPS = 1e-12
+
+
+def _l2n(v: torch.Tensor) -> torch.Tensor:
+    return v / (torch.linalg.vector_norm(v) + SN_EPS)
+
+
+class SNConv(nn.Module):
+    """Spectrally normalised 4x4 stride-2 conv, the JAX package's `SNConv`:
+    one power iteration per call on the weight as an (O, I*kh*kw) matrix,
+    v = l2n(W^T u) and u' = l2n(W v) without gradient, sigma = u' . (W v)
+    with gradient through W, then a reflect pad of 1 and a VALID conv with
+    W / sigma, plus the bias. l2n(a) = a / (|a| + eps), as in JAX
+    (`torch.nn.utils.spectral_norm` divides by max(|a|, eps) and draws its
+    own u).
+
+    `u` (O,) is a buffer, replaced by u' on each call with
+    `update_stats=True`. u' is a new tensor, and sigma's graph holds it and
+    v, never the buffer, so the copy does not disturb the backward.
+    """
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__()
+        k = SN_KERNEL_SIZE
+        self.weight = nn.Parameter(torch.empty(features, in_features, k, k))
+        self.bias = nn.Parameter(torch.empty(features))
+        self.register_buffer("u", torch.empty(features))
+
+    def sigma(self, update_stats: bool = True) -> torch.Tensor:
+        """The weight's spectral norm estimate; advances `u` when asked."""
+        w_mat = self.weight.reshape(self.weight.shape[0], -1)
+        with torch.no_grad():
+            v = _l2n(w_mat.t() @ self.u)
+            u_new = _l2n(w_mat @ v)
+        if update_stats:
+            self.u.copy_(u_new)
+        return torch.dot(u_new, w_mat @ v)
+
+    def forward(self, x, update_stats: bool = True):
+        weight = self.weight / self.sigma(update_stats)
+        return F.conv2d(reflect_pad(x, SN_PADDING), weight, self.bias,
+                        stride=SN_STRIDE)

@@ -120,20 +120,29 @@ _TORCHVISION_ALEX = (0, 3, 6, 8, 10)
 
 @torch.no_grad()
 def load_lpips(params_npz: Optional[str] = None,
-               backbone_path: Optional[str] = None) -> Tuple[LPIPS, bool]:
+               backbone_path: Optional[str] = None,
+               lin_path: Optional[str] = None,
+               seed: int = 0) -> Tuple[LPIPS, bool]:
     """(LPIPS, calibrated). params_npz: the JAX package's full LPIPS
     parameter snapshot (`save_lpips_npz`, '/'-joined leaves), calibrated.
-    backbone_path: a torchvision AlexNet `.features` state_dict beside the
-    packaged lin heads, calibrated. Neither: `default_lpips()`, not
-    calibrated."""
+    backbone_path: a torchvision AlexNet `.features` state_dict,
+    calibrated. lin_path: the lin heads as released with LPIPS v0.1
+    (`alex.pth`, keys `lin{k}.model.1.weight`) in place of the packaged
+    ones. Without params_npz or backbone_path the backbone is
+    `default_lpips(seed)`'s, not calibrated."""
     from hific_tpu_torch.weights import lpips_state_dict_from_jax
 
-    model = default_lpips()
+    model = default_lpips(seed)
     if params_npz is not None:
         with np.load(params_npz) as z:
             model.load_state_dict(
                 lpips_state_dict_from_jax({k: z[k] for k in z.files}))
         return model, True
+    if lin_path is not None:
+        lin = torch.load(lin_path, map_location="cpu", weights_only=True)
+        for k in range(len(ALEX_CHNS)):
+            getattr(model, f"lin{k}").copy_(
+                lin[f"lin{k}.model.1.weight"].reshape(-1))
     if backbone_path is not None:
         state = torch.load(backbone_path, map_location="cpu",
                            weights_only=True)
@@ -141,5 +150,4 @@ def load_lpips(params_npz: Optional[str] = None,
             conv = getattr(model.backbone, f"conv{k + 1}")
             conv.weight.copy_(state[f"{idx}.weight"])
             conv.bias.copy_(state[f"{idx}.bias"])
-        return model, True
-    return model, False
+    return model, backbone_path is not None

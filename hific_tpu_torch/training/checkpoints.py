@@ -4,9 +4,15 @@ counterpart of the JAX package's `training/checkpoints.py`.
 - `save_checkpoint` / `restore_train_state`: this package's own format,
   `<directory>/step_<N>.pt` (`torch.save` of the model's and the
   optimizer's state dicts, the step counter and the noise generator's
-  state) beside `config.json`. A warmstart restores the codec parameters,
-  their optimizer state and the step, and keeps a fresh noise generator,
-  as the JAX package's does.
+  state; in the GAN stage also the discriminator's state dict with each
+  SNConv's `u`, its optimizer's and the count of D steps) beside
+  `config.json`. A resume restores all of it, so the next steps are those
+  the run would have taken. A warmstart (a GAN run from a compression
+  run, say) needs the source run's `config.json` beside the checkpoint,
+  as the JAX package's does, refuses a source whose codec differs
+  (`CODEC_FIELDS`), and restores the codec parameters, their
+  optimizer state and the step; the noise generator, the discriminator
+  and its optimizer stay fresh, with a D count of 0.
 - `export_params_npz`: the codec parameters in the JAX package's
   `export_params_npz` layout (`p:<path>` leaves + `__config_json__`), so
   `hific_tpu.training.checkpoints.load_params_npz` loads what this package
@@ -33,6 +39,12 @@ from hific_tpu_torch.weights import (
 )
 
 CONFIG_FILENAME = "config.json"
+# The config fields that shape the codec or the meaning of its weights: a
+# warmstart source must agree with the target on each. The widths would
+# also fail `load_state_dict`; the likelihood and the input range would
+# load and train on the wrong model.
+CODEC_FIELDS = ("latent_channels", "n_residual_blocks", "hyperlatent_filters",
+                "likelihood_type", "normalize_input_image")
 
 
 def save_checkpoint(directory: str, state: TrainState, config: Config
@@ -45,6 +57,10 @@ def save_checkpoint(directory: str, state: TrainState, config: Config
         "optimizer": state.optimizer.state_dict(),
         "noise_generator": state.generator.get_state(),
     }
+    if state.disc is not None:
+        payload.update(disc=state.disc.state_dict(),
+                       disc_optimizer=state.disc_optimizer.state_dict(),
+                       disc_steps=state.disc_steps)
     tmp = f"{path}.tmp{os.getpid()}"
     torch.save(payload, tmp)
     os.replace(tmp, path)
@@ -73,15 +89,41 @@ def load_config(directory: str) -> Optional[Config]:
 
 
 def restore_train_state(path: str, config: Config, device=None,
-                        warmstart: bool = False) -> TrainState:
-    state = create_train_state(config, device=device)
+                        warmstart: bool = False, seed: int = 0
+                        ) -> TrainState:
+    """The train state saved at `path`, on `device`. What the checkpoint
+    does not restore (after a warmstart: the noise generator and the
+    discriminator) is `create_train_state(config, seed)`'s."""
+    if warmstart:
+        src_dir = os.path.dirname(os.path.abspath(path))
+        src_config = load_config(src_dir)
+        if src_config is None:
+            raise FileNotFoundError(
+                f"warmstart source config not found: expected "
+                f"{os.path.join(src_dir, CONFIG_FILENAME)} beside the "
+                f"checkpoint (written by save_checkpoint)")
+        differ = [f"{k}: {getattr(src_config, k)!r} in the source, "
+                  f"{getattr(config, k)!r} here" for k in CODEC_FIELDS
+                  if getattr(src_config, k) != getattr(config, k)]
+        if differ:
+            raise ValueError(f"warmstart from {path}: the codec differs "
+                             f"({'; '.join(differ)})")
+    state = create_train_state(config, seed, device)
     device = next(state.model.parameters()).device
     payload = torch.load(path, map_location=device, weights_only=True)
     state.model.load_state_dict(payload["model"])
     state.optimizer.load_state_dict(payload["optimizer"])
     state.step = int(payload["step"])
-    if not warmstart:
-        state.generator.set_state(payload["noise_generator"].cpu())
+    if warmstart:
+        return state
+    state.generator.set_state(payload["noise_generator"].cpu())
+    if state.disc is not None:
+        if "disc" not in payload:
+            raise ValueError(f"{path} holds no discriminator: start the GAN "
+                             f"stage from it with a warmstart")
+        state.disc.load_state_dict(payload["disc"])
+        state.disc_optimizer.load_state_dict(payload["disc_optimizer"])
+        state.disc_steps = int(payload["disc_steps"])
     return state
 
 

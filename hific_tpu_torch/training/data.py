@@ -3,14 +3,16 @@
 
 Random scale in [max(crop / short side, 0.75), 0.95], random crop to
 crop_size, horizontal flip; batches of uint8 NHWC crops (the train step
-maps them to floats on the device) with each source file's bpp. Decoding
-needs Pillow: without it the dataset raises; a file Pillow cannot read is
-skipped.
+maps them to floats on the device) with each source file's bpp, drawn by
+a pool of threads. Decoding needs Pillow: without it the dataset raises; a
+file Pillow cannot read is skipped.
 """
 
+import collections
 import os
 import queue
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -55,9 +57,13 @@ class TrainDataset:
         self.rng = np.random.RandomState(seed)
 
     def _sample(self) -> Optional[Tuple[np.ndarray, float]]:
+        path = self.files[self.rng.randint(len(self.files))]
+        return self._sample_path(path, self.rng)
+
+    def _sample_path(self, path: str, rng: np.random.RandomState
+                     ) -> Optional[Tuple[np.ndarray, float]]:
         from PIL import Image
 
-        path = self.files[self.rng.randint(len(self.files))]
         img = _load_image(path)
         if img is None:
             return None
@@ -65,30 +71,59 @@ class TrainDataset:
         bpp = _source_bpp(path, (h, w))
         crop = self.crop_size
         scale_low = max(crop / min(h, w), 0.75)
-        scale = self.rng.uniform(scale_low, max(scale_low, 0.95))
+        scale = rng.uniform(scale_low, max(scale_low, 0.95))
         nh = max(crop, int(round(h * scale)))
         nw = max(crop, int(round(w * scale)))
         if (nh, nw) != (h, w):
             img = np.asarray(
                 Image.fromarray(img).resize((nw, nh), Image.BILINEAR))
-        top = self.rng.randint(img.shape[0] - crop + 1)
-        left = self.rng.randint(img.shape[1] - crop + 1)
+        top = rng.randint(img.shape[0] - crop + 1)
+        left = rng.randint(img.shape[1] - crop + 1)
         img = img[top: top + crop, left: left + crop]
-        if self.rng.rand() < 0.5:
+        if rng.rand() < 0.5:
             img = img[:, ::-1]
         return np.ascontiguousarray(img), bpp
 
-    def batches(self, batch_size: int
+    def batches(self, batch_size: int, num_workers: int = 4
                 ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
-        """Infinite stream of (uint8 (B, crop, crop, 3), bpp (B,))."""
-        while True:
+        """Infinite stream of (uint8 (B, crop, crop, 3), bpp (B,)).
+
+        num_workers > 1: decoding and augmenting fan out over a thread pool
+        (Pillow releases the GIL while it decodes and resizes). The consumer
+        draws each sample's file and seed from the shared generator as it
+        submits it, so only one thread touches that generator and the
+        stream is the same on every run. num_workers <= 1: one thread,
+        every draw from the shared generator."""
+        if num_workers <= 1:
+            while True:
+                imgs, bpps = [], []
+                while len(imgs) < batch_size:
+                    s = self._sample()
+                    if s is not None:
+                        imgs.append(s[0])
+                        bpps.append(s[1])
+                yield np.stack(imgs), np.asarray(bpps, np.float32)
+
+        def submit(pool):
+            path = self.files[self.rng.randint(len(self.files))]
+            seed = int(self.rng.randint(2 ** 31))
+            return pool.submit(self._sample_path, path,
+                               np.random.RandomState(seed))
+
+        with ThreadPoolExecutor(max_workers=num_workers) as pool:
+            pending = collections.deque(
+                submit(pool) for _ in range(batch_size + num_workers))
             imgs, bpps = [], []
-            while len(imgs) < batch_size:
-                s = self._sample()
-                if s is not None:
-                    imgs.append(s[0])
-                    bpps.append(s[1])
-            yield np.stack(imgs), np.asarray(bpps, np.float32)
+            while True:
+                s = pending.popleft().result()
+                pending.append(submit(pool))
+                if s is None:
+                    continue
+                imgs.append(s[0])
+                bpps.append(s[1])
+                if len(imgs) == batch_size:
+                    yield np.stack(imgs), np.asarray(bpps, np.float32)
+                    imgs, bpps = [], []
 
 
 class EvalDataset:

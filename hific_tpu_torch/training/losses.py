@@ -1,12 +1,13 @@
-"""Losses of the compression stage; counterpart of the JAX package's
-`training/losses.py` (`distortion_loss`, `weighted_rate_loss`,
-`compression_loss`). The GAN losses belong to the GAN stage.
+"""Training losses; counterpart of the JAX package's `training/losses.py`
+(`distortion_loss`, `weighted_rate_loss`, `compression_loss`, and the GAN
+losses `non_saturating_gan_loss`, `least_squares_gan_loss`, `gan_loss`).
 
 The rate penalty is a `torch.where` on the device: no host read of the
 quantized rate per step.
 """
 
 import torch
+import torch.nn.functional as F
 
 from hific_tpu_torch.training.schedules import scheduled_param
 
@@ -28,6 +29,33 @@ def weighted_rate_loss(config, total_nbpp, total_qbpp, step: int,
                                  step, ignore_schedule)
     rate_penalty = torch.where(total_qbpp > target_bpp, lambda_a, lambda_b)
     return rate_penalty * total_nbpp, rate_penalty
+
+
+def non_saturating_gan_loss(d_real_logits, d_gen_logits):
+    """(D loss, G loss) from the logits: mean sigmoid cross-entropies, as
+    optax's `sigmoid_binary_cross_entropy` averaged."""
+    bce = F.binary_cross_entropy_with_logits
+    d_loss = (bce(d_real_logits, torch.ones_like(d_real_logits))
+              + bce(d_gen_logits, torch.zeros_like(d_gen_logits)))
+    g_loss = bce(d_gen_logits, torch.ones_like(d_gen_logits))
+    return d_loss, g_loss
+
+
+def least_squares_gan_loss(d_real, d_gen):
+    """(D loss, G loss) from the probabilities."""
+    d_loss = 0.5 * (torch.mean(torch.square(d_real - 1.0))
+                    + torch.mean(torch.square(d_gen)))
+    g_loss = 0.5 * torch.mean(torch.square(d_gen - 1.0))
+    return d_loss, g_loss
+
+
+def gan_loss(gan_loss_type: str, disc_out):
+    if gan_loss_type == "non_saturating":
+        return non_saturating_gan_loss(disc_out.d_real_logits,
+                                       disc_out.d_gen_logits)
+    if gan_loss_type == "least_squares":
+        return least_squares_gan_loss(disc_out.d_real, disc_out.d_gen)
+    raise ValueError(f"Invalid GAN loss {gan_loss_type}")
 
 
 def compression_loss(config, intermediates, lpips_fn, step: int,

@@ -1,6 +1,7 @@
-"""Training steps and train state of the compression stage; counterpart of
-the JAX package's `training/train_step.py` (`create_train_state`,
-`make_optimizers`, `ingest_batch`, `make_train_step_g`, `make_eval_step`).
+"""Training steps and train state; counterpart of the JAX package's
+`training/train_step.py` (`create_train_state`, `make_optimizers`,
+`ingest_batch`, `make_train_step_g`, `make_train_step_d`,
+`make_eval_step`).
 
 Two optimizer groups, as in the JAX package's `optax.multi_transform`:
 `hyper` (the parameters of the hyperlatent density) and `amort` (every
@@ -9,11 +10,19 @@ piecewise-constant learning-rate schedule of the step counter. One
 `torch.optim.Adam` with two parameter groups computes the same updates.
 `Config.weight_decay` is not applied: `optax.adam` ignores it too.
 
+The GAN stage (`config.use_discriminator`) adds the discriminator with its
+own Adam, whose learning rate follows the schedule at the count of
+discriminator steps, as `optax.adam(lr_schedule)` reads its own count:
+after a warmstart from step 500,000 the generator's rate is 1e-5 and the
+discriminator's 1e-4. A G step adds beta * G loss and steps the codec
+only; a D step runs the codec forward without gradient on its own batch
+and steps the discriminator only; only G steps move `state.step`.
+
 Unlike the JAX package's pure functions, a step updates the state in place
-(parameters, optimizer moments, step counter, noise generator): it saves
-a copy of every parameter and moment per step. Each step runs with TF32
-off (`runtime.fp32_numerics`), the fp32 arithmetic the CPU parity tests
-hold. The GAN stage (discriminator, `train_step_d`) is not ported yet.
+(parameters, optimizer moments, counters, noise generator, the
+discriminator's `u`): it saves a copy of every parameter and moment per
+step. Each step runs with TF32 off (`runtime.fp32_numerics`), the fp32
+arithmetic the CPU parity tests hold.
 """
 
 import dataclasses
@@ -23,9 +32,14 @@ import numpy as np
 import torch
 
 from hific_tpu_torch.config import Config
-from hific_tpu_torch.models.hific import HiFiC, init_random_
+from hific_tpu_torch.models.discriminator import Discriminator
+from hific_tpu_torch.models.hific import (
+    HiFiC,
+    discriminator_forward,
+    init_random_,
+)
 from hific_tpu_torch.runtime import fp32_numerics, resolve_device
-from hific_tpu_torch.training.losses import compression_loss
+from hific_tpu_torch.training.losses import compression_loss, gan_loss
 from hific_tpu_torch.training.schedules import scheduled_param
 
 ADAM = dict(betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0)
@@ -38,13 +52,15 @@ class TrainState:
     model: HiFiC
     optimizer: torch.optim.Adam      # param groups 'amort' and 'hyper'
     generator: torch.Generator       # quantization noise, on the device
+    # The GAN stage's; None (and 0) in the compression stage.
+    disc: Optional[Discriminator] = None
+    disc_optimizer: Optional[torch.optim.Adam] = None
+    disc_steps: int = 0              # discriminator steps taken
 
 
-def _require_compression(config: Config) -> None:
-    if config.use_discriminator:
-        raise NotImplementedError("hific_tpu_torch trains the compression "
-                                  "stage only; the GAN stage is not ported "
-                                  "yet")
+def _lr(config: Config, count: int) -> float:
+    return scheduled_param(config.learning_rate, config.lr_schedule, count,
+                           config.ignore_schedule)
 
 
 def make_optimizers(config: Config, model: HiFiC) -> torch.optim.Adam:
@@ -53,21 +69,31 @@ def make_optimizers(config: Config, model: HiFiC) -> torch.optim.Adam:
         (hyper if name.startswith(HYPER_PREFIX) else amort).append(p)
     return torch.optim.Adam(
         [{"params": amort, "name": "amort"},
-         {"params": hyper, "name": "hyper"}],
-        lr=scheduled_param(config.learning_rate, config.lr_schedule, 0,
-                           config.ignore_schedule), **ADAM)
+         {"params": hyper, "name": "hyper"}], lr=_lr(config, 0), **ADAM)
+
+
+def make_disc_optimizer(config: Config, disc: Discriminator
+                        ) -> torch.optim.Adam:
+    return torch.optim.Adam(disc.parameters(), lr=_lr(config, 0), **ADAM)
 
 
 def create_train_state(config: Config, seed: int = 0, device=None
                        ) -> TrainState:
-    """Seeded random weights (`init_random_`) on `device` (the card unless
-    named), fresh Adam moments, step 0."""
-    _require_compression(config)
+    """Seeded random weights (`init_random_`; the discriminator's, in the
+    GAN stage, drawn after the codec's from the same generator) on
+    `device` (the card unless named), fresh Adam moments, step 0."""
     device = resolve_device(device)
-    model = init_random_(HiFiC(config), torch.Generator().manual_seed(seed))
+    weights = torch.Generator().manual_seed(seed)
+    model = init_random_(HiFiC(config), weights)
     model = model.to(device, memory_format=torch.channels_last)
     noise = torch.Generator(device=device).manual_seed(seed + 1)
-    return TrainState(0, model, make_optimizers(config, model), noise)
+    state = TrainState(0, model, make_optimizers(config, model), noise)
+    if config.use_discriminator:
+        disc = init_random_(Discriminator(config.effective_latent_channels),
+                            weights)
+        state.disc = disc.to(device, memory_format=torch.channels_last)
+        state.disc_optimizer = make_disc_optimizer(config, state.disc)
+    return state
 
 
 def ingest_batch(x, config: Config, device) -> torch.Tensor:
@@ -87,11 +113,18 @@ def _device(state: TrainState) -> torch.device:
     return next(state.model.parameters()).device
 
 
+def _set_lr(optimizer: torch.optim.Adam, lr: float) -> None:
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+
+
 def make_train_step_g(config: Config, lpips_fn: Optional[Callable] = None):
-    """Compression step: gradients of the compression loss w.r.t. the codec
-    parameters, one Adam update of both groups, step += 1. Returns
-    step_fn(state, x) -> diagnostics (device tensors, no host read)."""
-    _require_compression(config)
+    """Generator/compression step: gradients of the compression loss (plus
+    beta * G loss in the GAN stage, through the discriminator, whose `u`
+    advances) w.r.t. the codec parameters, one Adam update of both groups,
+    step += 1. No discriminator gradient is computed or left in `.grad`.
+    Returns step_fn(state, x) -> diagnostics (device tensors, no host
+    read)."""
 
     def step_fn(state: TrainState, x):
         with fp32_numerics(deterministic=False):
@@ -102,15 +135,58 @@ def make_train_step_g(config: Config, lpips_fn: Optional[Callable] = None):
             loss, diagnostics = compression_loss(
                 config, intermediates, lpips_fn, state.step,
                 config.ignore_schedule)
+            if config.use_discriminator:
+                # The graph is built without the discriminator's leaves.
+                state.disc_optimizer.zero_grad(set_to_none=True)
+                state.disc.requires_grad_(False)
+                try:
+                    disc_out = discriminator_forward(
+                        intermediates, state.disc, train_generator=True)
+                finally:
+                    state.disc.requires_grad_(True)
+                _, g_loss = gan_loss(config.gan_loss_type, disc_out)
+                loss = loss + config.beta * g_loss
+                diagnostics["gen_loss"] = g_loss
+                diagnostics["weighted_gen_loss"] = config.beta * g_loss
             diagnostics["weighted_compression_loss"] = loss
             loss.backward()
-            lr = scheduled_param(config.learning_rate, config.lr_schedule,
-                                 state.step, config.ignore_schedule)
-            for group in state.optimizer.param_groups:
-                group["lr"] = lr
+            _set_lr(state.optimizer, _lr(config, state.step))
             state.optimizer.step()
         state.step += 1
         return {k: v.detach() for k, v in diagnostics.items()}
+
+    return step_fn
+
+
+def make_train_step_d(config: Config):
+    """Discriminator step on its own batch: the codec forward without
+    gradient (fresh quantization noise from the state's generator), then
+    the gradients of the D loss w.r.t. the discriminator's parameters
+    only, one Adam update at the schedule's rate for the count of D steps.
+    `state.step` does not move. Returns step_fn(state, x) -> diagnostics
+    (`disc_loss`, `D_real`, `D_gen`; device tensors)."""
+    if not config.use_discriminator:
+        raise ValueError(f"model_type {config.model_type!r} has no "
+                         f"discriminator")
+
+    def step_fn(state: TrainState, x):
+        with fp32_numerics(deterministic=False):
+            x = ingest_batch(x, config, _device(state))
+            state.model.train()
+            with torch.no_grad():
+                intermediates, _ = state.model(x, state.generator,
+                                               training=True)
+            state.disc_optimizer.zero_grad(set_to_none=True)
+            disc_out = discriminator_forward(intermediates, state.disc,
+                                             train_generator=False)
+            d_loss, _ = gan_loss(config.gan_loss_type, disc_out)
+            d_loss.backward()
+            _set_lr(state.disc_optimizer, _lr(config, state.disc_steps))
+            state.disc_optimizer.step()
+        state.disc_steps += 1
+        return {"disc_loss": d_loss.detach(),
+                "D_real": torch.mean(disc_out.d_real.detach()),
+                "D_gen": torch.mean(disc_out.d_gen.detach())}
 
     return step_fn
 

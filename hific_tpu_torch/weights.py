@@ -23,6 +23,14 @@ Every conversion is an exact permutation or an exact widening:
 trains exports in the JAX artifact layout (`training/checkpoints.py`,
 `export_params_npz`). `lpips_state_dict_from_jax` carries the JAX
 package's LPIPS parameters (`models/lpips.py`) to this package's.
+
+The discriminator (`disc_state_dict_from_jax`, `jax_disc_from_model`)
+lives apart from the codec tree in the JAX package (`disc_params`, and
+its `spectral` collection holding each SNConv's `u` under
+`discriminator/convK/u`). Its `context_conv` and `conv_out` are ordinary
+`Conv_0` leaves; an SNConv declares `convK/kernel` at its own level with no
+`Conv_0`, like a transposed conv, but its kernel is a plain HWIO
+correlation kernel: OIHW by a transpose, with no flip.
 """
 
 from typing import Dict, Mapping, Tuple
@@ -33,7 +41,7 @@ from torch import nn
 
 from hific_tpu_torch.config import Config
 from hific_tpu_torch.models.density import HyperlatentDensity
-from hific_tpu_torch.models.layers import Conv, ConvTranspose, Norm
+from hific_tpu_torch.models.layers import Conv, ConvTranspose, Norm, SNConv
 
 NPZ_CONFIG_KEY = "__config_json__"
 NPZ_LEAF_PREFIX = "p:"
@@ -132,6 +140,50 @@ def jax_params_from_model(model: nn.Module) -> Dict[str, np.ndarray]:
             for leaf, p in module.named_parameters(recurse=False):
                 flat[f"{path}/{leaf}"] = p.detach().cpu().numpy()
     return {k: np.ascontiguousarray(v, np.float32) for k, v in flat.items()}
+
+
+def disc_state_dict_from_jax(disc_params: Mapping, spectral: Mapping
+                             ) -> Dict[str, torch.Tensor]:
+    """The JAX package's discriminator parameters and `spectral` collection
+    (nested or '/'-flat, numpy leaves; `u` under `discriminator/convK/u`)
+    -> float32 CPU state_dict for `models.discriminator.Discriminator`."""
+    out = {}
+    for path, value in flatten_tree(disc_params).items():
+        parts = path.split("/")
+        if parts[-1] == "kernel" and parts[-2] != "Conv_0":  # SNConv
+            key = ".".join(parts[:-1] + ["weight"])
+            a = np.ascontiguousarray(
+                leaf_to_float32(value).transpose(3, 2, 0, 1))
+        else:
+            key, a = convert_leaf(path, value)
+        out[key] = torch.from_numpy(a)
+    for path, value in flatten_tree(spectral).items():
+        parts = path.split("/")
+        if parts[0] == "discriminator":
+            parts = parts[1:]
+        out[".".join(parts)] = torch.from_numpy(
+            np.ascontiguousarray(leaf_to_float32(value)))
+    return out
+
+
+def jax_disc_from_model(disc: nn.Module) -> Tuple[Dict[str, np.ndarray],
+                                                 Dict[str, np.ndarray]]:
+    """Discriminator -> ({'a/b': float32 leaf} of its parameters,
+    {'discriminator/convK/u': float32 leaf} of its spectral collection), in
+    the JAX package's trees and layouts (the inverse of
+    `disc_state_dict_from_jax`)."""
+    params, spectral = {}, {}
+    for name, module in disc.named_modules():
+        path = name.replace(".", "/")
+        if isinstance(module, (Conv, SNConv)):
+            leaf = path if isinstance(module, SNConv) else f"{path}/Conv_0"
+            w = module.weight.detach().cpu().numpy()
+            params[f"{leaf}/kernel"] = w.transpose(2, 3, 1, 0)
+            params[f"{leaf}/bias"] = module.bias.detach().cpu().numpy()
+        if isinstance(module, SNConv):
+            spectral[f"discriminator/{path}/u"] = module.u.cpu().numpy()
+    return tuple({k: np.ascontiguousarray(v, np.float32)
+                  for k, v in d.items()} for d in (params, spectral))
 
 
 def lpips_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:

@@ -777,9 +777,9 @@ def test_train_cli_two_steps_on_the_cpu(tmp_path):
     state = train_cli.run(train_cli.parse_args(
         flags + ["--steps", "3", "--resume_ckpt", path]))
     assert state.step == 3
-    with open(ckpt_dir.parent / "metrics.jsonl") as f:
+    with open(ckpt_dir.parent / "tensorboard" / "metrics.jsonl") as f:
         rows = [json.loads(line) for line in f]
-    assert rows and all(np.isfinite(r["weighted_compression_loss"])
+    assert rows and all(np.isfinite(r["train/weighted_compression_loss"])
                         for r in rows)
     with pytest.raises(SystemExit, match="uncalibrated"):
         train_cli.main([f for f in flags if f != "--uncalibrated_lpips_ok"]
