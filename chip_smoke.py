@@ -8,7 +8,10 @@ codec (`compress_many` / `decompress_many` on the device rANS coders), a
 6 MP image whole and on tiles, the serving daemon `cli/serve.py` under
 concurrent clients, the compress and decompress CLIs, and both stages of
 training through the trainer `hific_tpu_torch.cli.train` (compression
-steps, then GAN steps warmstarted from them); and holds every kernel of
+steps, then GAN steps warmstarted from them), in fp32; then the same
+flagship in bf16 (`dtype="bfloat16"`): the codec round trip, the batch
+codec, and the trainer with remat, the corpus on the card and the
+profiler, with the model variants' tiny steps; and holds every kernel of
 those paths against its plain PyTorch version:
 
 1. the card's name, power limit and count;
@@ -19,14 +22,15 @@ those paths against its plain PyTorch version:
    coder);
 3. runs the ChannelNorm forward kernel at each of the round trip's 29
    (M, C, act) shapes against its plain version (fp32 within 1e-5; bf16
-   within one ulp plus 1e-5 at two shapes), with its time, the plain
-   version's time and the memory bound;
+   within one ulp plus 1e-5), with its time, the plain version's time and
+   the memory bound, in each dtype;
 4. runs the ChannelNorm backward kernels (the row kernel and the column
    sum of its per-block partial sums) at each of the 29 norm shapes of a
    batch-8, 256x256 flagship training step against their plain version,
    dx, dgamma and dbeta, in fp32 (within 1e-5 of the row's or column's
    scale) and bf16 (dx within one bf16 ulp more), twice with the same bits,
-   with the same timings, each kernel also timed alone;
+   with the same timings in both dtypes (and the forward kernel's at those
+   shapes), each fp32 kernel also timed alone;
 5. loads the flagship weights (seeded random weights of the same
    configuration where the artifact is absent) and builds the codec and
    its tables; then runs rans_encode and rans_decode against their plain
@@ -56,7 +60,7 @@ those paths against its plain PyTorch version:
    compressed whole and with tile_image=1024, halo_image=64, each file
    decoding on the host coder to the symbols it encoded, the symbols where
    the two encodes differ (measured), decompress(as_uint8) whole against
-   tile_latents=64 and 32 (largest pixel difference, measured), one rANS
+   tile_latents=64 (largest pixel difference, measured), one rANS
    launch per leg, each leg's time and peak device memory, and the
    generator's peak on one tile-32 window under deterministic cuDNN and
    with cuDNN free; then `cli/serve.py` in-process on 127.0.0.1 (port 0,
@@ -73,7 +77,8 @@ those paths against its plain PyTorch version:
    (the served codec's pixels); the serving and CLI phases read the
    artifact, or the seeded weights written to a temporary `.npz`;
 7. one tiny-config training step on the card against the same step on the
-   CPU's plain path (same weights, same noise): loss within 1e-4, every
+   CPU's plain path (same weights, same noise, the CPU taking the card's
+   side of each ReLU kink as in phase 11): loss within 1e-4, every
    gradient within 1e-3 of its leaf's largest;
 8. five flagship-width compression steps (batch 8 of seeded 256x256 uint8
    crops, seeded random weights and LPIPS backbone) through the trainer:
@@ -94,7 +99,29 @@ those paths against its plain PyTorch version:
    unchanged by it; u changed by each call; 29 forward and 29 backward
    launches a G step, 29 and 0 a D step), the warm G and D step times,
    the peak device memory and a profile of one more pair;
-11. prints the kernels' JSON line and, last, the device line.
+11. this slice. Tiny-config steps card vs CPU of the variants, the CPU
+   step taking the card's side of each ReLU and latent rounding the two
+   decided apart (`hific_tpu_torch.kinks`): bf16 (loss within 1e-3; each
+   ReLU layer's pre-activations, each rounding's input and each gradient
+   leaf no further from the CPU's fp32 step than twice the CPU bf16
+   step plus one bf16 ulp), instance norm, sample_noise with the same
+   noise and the DLMM hyperprior (1e-4; 1e-3; each tie within 1e-4 of
+   the kink on both sides). The flagship codec in bf16 on the same
+   weights: compress_file -> .hfc -> decompress_file of the 768x512 image
+   (symbols lossless; 29 norm launches, norm_in's on the fp32 decoded
+   latents and the rest bf16; one launch of each rANS kernel), then the
+   batch path of phase 6 (bytes equal to the host coder's; serial,
+   pipelined and device-resident MP/s). The trainer, `-mt compression
+   --dtype bfloat16 --use_remat --device_data --profile_dir <tmp> --steps
+   16` in-process on seeded 320x320 tiles (batch 8 of 256x256 crops):
+   each step finite, a nonzero gradient for every codec parameter, the
+   transposed convs' parameters and Adam moments bf16 and the rest fp32,
+   47 forward (29, and the residual blocks' 18 again in the recompute) and
+   29 backward norm launches, all bf16; the trace exists, shows the same
+   launches per step and no host-to-device copy of a batch's size; one
+   step's peak device memory lower with remat than without (gated), the
+   warm step time and the trace's device busy share;
+12. prints the kernels' JSON line and, last, the device line.
 
 Any failure exits non-zero; no phase catches an error. Needs one CUDA card.
 """
@@ -211,7 +238,9 @@ def check_channel_norm(shapes, gen):
                 f"kernel {k_ms:.4f} ms plain {p_ms:.4f} ms bound "
                 f"{bound_ms:.4f} ms ({bound_ms / k_ms:.0%} of HBM roofline)")
         rows.append(timed[(m, c, act)])
-    for m, c, act in (shapes[0], shapes[-5]):  # bf16 at two shapes
+    # bf16 at every shape: the bf16 codec and training paths.
+    bf16_rows, bf16_timed, beyond_max = [], {}, 0.0
+    for m, c, act in shapes:
         x = torch.randn((1, m, 1, c), generator=gen).permute(0, 3, 1, 2)
         x = x.cuda().to(torch.bfloat16).contiguous(
             memory_format=torch.channels_last)
@@ -228,17 +257,31 @@ def check_channel_norm(shapes, gen):
         if not bool((diff <= ulp + FP32_TOL).all()):
             raise AssertionError(f"bf16 channel_norm M={m} C={c}: off by "
                                  f"{float((diff - ulp).max())} beyond one ulp")
-        beyond = int((diff > ulp).sum())
-        log(f"channel_norm bf16 M={m} C={c} {act}: {beyond} of {diff.numel()} "
-            f"values beyond one bf16 ulp, by at most "
-            f"{float((diff - ulp).clamp_min(0).max()):.2e}")
+        beyond = float((diff - ulp).clamp_min(0).max())
+        beyond_max = max(beyond_max, beyond)
+        if (m, c, act) not in bf16_timed:
+            k_ms = cuda_time_ms(
+                lambda: fused_norm.channel_norm_fused(x, gamma, beta, act=act))
+            p_ms = cuda_time_ms(lambda: fused_norm.channel_norm_fused_reference(
+                x, gamma, beta, act=act))
+            bound_ms = (2 * m * c * 2 + 2 * c * 4) / HBM_BYTES_PER_S * 1e3
+            bf16_timed[(m, c, act)] = (k_ms, p_ms, bound_ms)
+            log(f"channel_norm bf16 M={m:6d} C={c:3d} {act:4s}: "
+                f"{int((diff > ulp).sum())} of {diff.numel()} values beyond "
+                f"one ulp, by at most {beyond:.2e}; kernel {k_ms:.4f} ms "
+                f"plain {p_ms:.4f} ms bound {bound_ms:.4f} ms "
+                f"({bound_ms / k_ms:.0%} of HBM roofline)")
+        bf16_rows.append(bf16_timed[(m, c, act)])
     return {
         "ms": sum(r[0] for r in rows),
         "plain_ms": sum(r[1] for r in rows),
         "bound_ms": sum(r[2] for r in rows),
         "max_abs_err": max_err,
+        "bf16": {"ms": sum(r[0] for r in bf16_rows),
+                 "plain_ms": sum(r[1] for r in bf16_rows),
+                 "bound_ms": sum(r[2] for r in bf16_rows),
+                 "max_beyond_one_ulp": beyond_max},
     }
-
 
 
 def train_step_norm_shapes(config, batch: int, crop: int):
@@ -328,7 +371,7 @@ def check_channel_norm_backward(shapes, gen):
     Returns the summary."""
     from hific_tpu_torch.ops import fused_norm
 
-    timed_shapes, max_err, worst = {}, 0.0, (0.0, 0.0)
+    timed_shapes, bf16_shapes, max_err, worst = {}, {}, 0.0, (0.0, 0.0)
     for m, c, act in shapes:
         if (m, c, act) in timed_shapes:
             continue
@@ -390,12 +433,39 @@ def check_channel_norm_backward(shapes, gen):
                       f"{f_ms:.4f} ms, plain {fp_ms:.4f} ms, bound "
                       f"{f_bound:.4f} ms", flush=True)
             else:
+                k_ms = cuda_time_ms(lambda: fused_norm.channel_norm_backward(
+                    x, gamma, beta, g, act=act))
+                p_ms = cuda_time_ms(
+                    lambda: fused_norm.channel_norm_backward_reference(
+                        x, gamma, beta, g, act=act))
+                bound_ms = ((3 * m * c * 2 + 4 * c * 4) / HBM_BYTES_PER_S
+                            * 1e3)
+                y = fused_norm.channel_norm_fused(x, gamma, beta, act=act)
+                want = fused_norm.channel_norm_fused_reference(
+                    x, gamma, beta, act=act).float()
+                if not bool(((y.float() - want).abs()
+                             <= bf16_ulp(want) + FP32_TOL).all()):
+                    raise AssertionError(f"bf16 channel_norm M={m} C={c} "
+                                         f"{act}: beyond one ulp")
+                f_ms = cuda_time_ms(lambda: fused_norm.channel_norm_fused(
+                    x, gamma, beta, act=act))
+                f_bound = (2 * m * c * 2 + 2 * c * 4) / HBM_BYTES_PER_S * 1e3
+                bf16_shapes[(m, c, act)] = (k_ms, p_ms, bound_ms, f_ms,
+                                            f_bound)
                 log(f"backward bf16 M={m:6d} C={c:3d} {act:4s}: dx beyond "
                     f"one ulp by {dx_rel:.1e} of row scale at most ({beyond} "
                     f"values beyond one ulp), sums {sums_rel:.1e}, "
-                    f"{kink_rows} rows at the kink")
+                    f"{kink_rows} rows at the kink; kernel {k_ms:.4f} ms, "
+                    f"plain {p_ms:.4f} ms, bound {bound_ms:.4f} ms; forward "
+                    f"kernel {f_ms:.4f} ms, bound {f_bound:.4f} ms")
     rows = [timed_shapes[s] for s in shapes]
+    bf16_rows = [bf16_shapes[s] for s in shapes]
     return {
+        "bf16": {"ms": sum(r[0] for r in bf16_rows),
+                 "plain_ms": sum(r[1] for r in bf16_rows),
+                 "bound_ms": sum(r[2] for r in bf16_rows),
+                 "fwd_ms": sum(r[3] for r in bf16_rows),
+                 "fwd_bound_ms": sum(r[4] for r in bf16_rows)},
         "ms": sum(r[0] for r in rows),
         "plain_ms": sum(r[1] for r in rows),
         "bound_ms": sum(r[2] for r in rows),
@@ -521,6 +591,151 @@ def tiny_step_card_vs_cpu() -> str:
     return (f"tiny training step, card vs CPU plain path: loss rel diff "
             f"{loss_rel:.2e} (limit 1e-4), worst gradient leaf "
             f"{grad_rel:.2e} of its largest (limit 1e-3)")
+
+
+# A ReLU input or latent within this share of its layer's largest
+# |pre-activation| of the kink (of its magnitude of the half-integer) may
+# fall on either side on the card and the CPU in float32: the CPU tests'
+# KINK_REL (tests/test_torch_train.py).
+KINK_REL = 1e-4
+
+
+def bf16_share(card, cpu, ref) -> float:
+    """|card - ref| over its bfloat16 limit, 2 |cpu - ref| + one bf16 ulp
+    of ref's largest |value| (2**-7 of it rounded down to a power of 2):
+    how the tiny bfloat16 step judges each tensor of the card's run
+    against the CPU's bfloat16 run, with the CPU's float32 run as the
+    yardstick."""
+    card, cpu, ref = (t.float() for t in (card, cpu, ref))
+    top = float(ref.abs().max())
+    floor = 2.0 ** math.floor(math.log2(top)) * 2.0 ** -7 if top else 0.0
+    limit = 2 * float((cpu - ref).abs().max()) + floor
+    return float((card - ref).abs().max()) / max(limit, 1e-30)
+
+
+def tiny_variant_step_card_vs_cpu(overrides, loss_tol: float,
+                                  grad_tol: float) -> str:
+    """One tiny-config training step of a variant (`overrides`: its config
+    fields) on the card (the kernels) and on the CPU (the plain versions),
+    same weights and same noise (quantization noise and, with
+    `sample_noise`, the generator's): loss within `loss_tol` relative.
+
+    The CPU step takes the card's side of every ReLU and latent rounding
+    the two decided apart (`KinkSides`). float32: each such element within
+    KINK_REL of the tie on both sides, and every gradient within
+    `grad_tol` of its leaf's largest. bfloat16, whose differences have no
+    natural scale, against the CPU's float32 step (which takes its own
+    sides): each ReLU layer's pre-activations, each rounding's input and
+    each gradient leaf of the card's step no further from float32 than
+    twice the CPU bfloat16 step's distance plus one bf16 ulp (`bf16_share`
+    at most `grad_tol`). An element decided apart then lies within that
+    bound of the tie, so the card's side is one the CPU could have taken."""
+    import hific_tpu_torch.models.generator as generator_module
+    import hific_tpu_torch.models.hyperprior as hyperprior_module
+    from hific_tpu_torch.config import mse_lpips_config
+    from hific_tpu_torch.kinks import KinkSides
+    from hific_tpu_torch.models.hific import HiFiC, init_random_
+    from hific_tpu_torch.training.train_step import (
+        TrainState, make_optimizers, make_train_step_g)
+
+    cfg = mse_lpips_config(latent_channels=8, n_residual_blocks=1,
+                           hyperlatent_filters=16, crop_size=64, **overrides)
+    rng = np.random.RandomState(SEED)
+    x = rng.randint(0, 256, (2, 64, 64, 3)).astype(np.uint8)
+    noise = {}
+
+    def shared(key, draw):
+        if key not in noise:
+            noise[key] = torch.from_numpy(draw(key).astype(np.float32))
+        return noise[key]
+
+    def shared_noise(t, generator):
+        return t + shared(("u",) + tuple(t.shape), lambda k: rng.uniform(
+            -0.5, 0.5, k[1:])).to(t.device, t.dtype)
+
+    def shared_normal(shape, generator, dtype, device):
+        return shared(("n",) + tuple(shape), lambda k: rng.randn(*k[1:])
+                      ).to(device, dtype)
+
+    init = init_random_(HiFiC(cfg), torch.Generator().manual_seed(SEED))
+    bf16 = cfg.dtype == "bfloat16"
+    # bf16: the CPU's fp32 step too, the yardstick of both bf16 steps.
+    runs = [("cuda", cfg), ("cpu", cfg)] + (
+        [("cpu32", cfg.replace(dtype="float32"))] if bf16 else [])
+    grads, losses, sides = {}, {}, {}
+    saved = hyperprior_module.quantize_noise, generator_module.generator_noise
+    hyperprior_module.quantize_noise = shared_noise
+    generator_module.generator_noise = shared_normal
+    try:
+        for device, run_cfg in runs:
+            model = HiFiC(run_cfg)
+            model.load_state_dict(init.state_dict())
+            model = model.to("cuda" if device == "cuda" else "cpu",
+                             memory_format=torch.channels_last)
+            state = TrainState(0, model, make_optimizers(run_cfg, model),
+                               None)
+            with KinkSides().hooked(model, sides["cuda"] if device == "cpu"
+                                    else None) as sides[device]:
+                diag = make_train_step_g(run_cfg)(state, x)
+            losses[device] = float(diag["weighted_compression_loss"])
+            grads[device] = {n: p.grad.float().cpu() for n, p in
+                             model.named_parameters()}
+    finally:
+        hyperprior_module.quantize_noise, generator_module.generator_noise = \
+            saved
+    card, cpu = sides["cuda"], sides["cpu"]
+    loss_rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    name = ", ".join(f"{k}={v}" for k, v in overrides.items())
+    if bf16:
+        ref = sides["cpu32"]
+        acts = {n: bf16_share(card.pre[n], cpu.pre[n], ref.pre[n])
+                for n in card.pre}
+        acts.update({f"rounding {i}": bf16_share(a, b, c) for i, (a, b, c)
+                     in enumerate(zip(card.rounding, cpu.rounding,
+                                      ref.rounding))})
+        rel = {n: bf16_share(grads["cuda"][n], grads["cpu"][n],
+                             grads["cpu32"][n]) for n in grads["cpu"]}
+        worst_act = max(acts, key=acts.get)
+        if acts[worst_act] > grad_tol:
+            raise AssertionError(
+                f"tiny training step ({name}), card vs CPU: activations "
+                f"{worst_act} at {acts[worst_act]:.3f} of their bf16 limit "
+                f"(limit {grad_tol:g}); {cpu.summary()}")
+        ties = (f"activations at most {acts[worst_act]:.3f} of their bf16 "
+                f"limit ({worst_act})")
+    else:
+        # Under instance norm a bias that feeds a norm (and norm_in's beta)
+        # has a zero gradient in exact arithmetic: both sides' are rounding
+        # noise, held against the largest gradient of the layer's weight.
+        scale_of = {}
+        if not cfg.use_channel_norm:
+            convs = (["encoder.conv_stem"]
+                     + [f"encoder.conv_down{i}" for i in range(4)]
+                     + ["generator.conv_head", "generator.resblock_0.conv1",
+                        "generator.resblock_0.conv2"]
+                     + [f"generator.upconv{i}" for i in range(4)])
+            scale_of = {f"{c}.bias": f"{c}.weight" for c in convs}
+            scale_of["generator.norm_in.beta"] = "generator.norm_in.gamma"
+        cpu.check(KINK_REL)
+        rel = {n: float((grads["cuda"][n] - g).abs().max()
+                        / grads["cpu"][scale_of.get(n, n)].abs().max()
+                        .clamp_min(1e-30))
+               for n, g in grads["cpu"].items()}
+        ties = f"ties within {KINK_REL:g}"
+    worst = max(rel, key=rel.get)
+    grad_rel = rel[worst]
+    if not (loss_rel <= loss_tol and grad_rel <= grad_tol):
+        top = sorted(rel, key=rel.get)[-4:]
+        raise AssertionError(f"tiny training step ({name}), card vs CPU: loss "
+                             f"off by {loss_rel:.2e}, gradients by "
+                             f"{grad_rel:.2e} ({worst}; next "
+                             f"{[(n, round(rel[n], 6)) for n in top]})")
+    what = ("of its bf16 limit (2 |CPU bf16 - fp32| + 1 ulp)" if bf16
+            else "of its largest")
+    return (f"tiny training step ({name}), card vs CPU plain path: loss rel "
+            f"diff {loss_rel:.2e} (limit {loss_tol:g}), worst gradient leaf "
+            f"{worst} {grad_rel:.2e} {what} (limit {grad_tol:g}); {ties}; "
+            f"{cpu.summary()}")
 
 
 def train_crops(seed: int):
@@ -923,7 +1138,7 @@ def check_rans_kernels(codec, card: str):
     its stream equal to the host coder's, and the host coder's stream
     decoded to the symbols by both. Times (escape rate 0): the kernel's ms
     (CUDA events, median of 20) and us a position, the plain version's
-    (median of 3), the native host coder's for the same stream (median of
+    (one run), the native host coder's for the same stream (median of
     5) and the bound; and the batch's launch. Returns ({(kernel, shape
     label): timings}, {kernel: max abs error of any output word or
     symbol}, the batch's timings)."""
@@ -993,7 +1208,9 @@ def check_rans_kernels(codec, card: str):
         shape = label.split(" escapes")[0]
         n = p * lanes
         k_ms = event_ms(lambda: encode_scan(*job), 20)
-        p_ms = event_ms(lambda: encode_scan_reference(*job), 3)
+        # The plain versions (~0.3-2 s a stream) once: a yardstick ~1000x
+        # the kernels' time, whose spread matters little.
+        p_ms = event_ms(lambda: encode_scan_reference(*job), 1)
         h_ms = host_ms(lambda: host_encode(kind, sym, idx), 5)
         # Bytes, each read once: the symbols and indices; of the CDF rows
         # the two words a symbol gathers or the whole table, whichever is
@@ -1010,7 +1227,7 @@ def check_rans_kernels(codec, card: str):
             k_ms = event_ms(lambda: decode_scan(words, idx_d, packed[kind]),
                             20)
             p_ms = event_ms(lambda: decode_scan_reference(
-                words, idx_d, packed[kind]), 3)
+                words, idx_d, packed[kind]), 1)
             h_ms = host_ms(lambda: native.decode_lanes(
                 host, idx, t.cdf, t.cdf_length, t.cdf_offset, t.inverse,
                 t.precision), 5)
@@ -1283,7 +1500,9 @@ def load_weights(path: str, seed: int):
 
     if os.path.exists(path):
         config, state = load_npz(path)
-        return config, state, f"artifact {path}"
+        # Its config computes in bf16; the phases before 11 run fp32, and
+        # phase 11 runs the same weights in bf16.
+        return config.replace(dtype="float32"), state, f"artifact {path}"
     # The flagship configuration (C=220, 9 residual blocks, hyperlatent
     # filters 320) is Config's default.
     config = Config()
@@ -1313,6 +1532,8 @@ def rans_entry(name: str, timed_rans, max_err: int, launches_by_path, batch):
         **{key: sum(r[key] for r in image)
            for key in ("ms", "plain_ms", "host_coder_ms", "bound_ms")},
         "bound_by": "bytes", "library_ms": None,
+        "dtypes": "int32 symbols and indices on every path (fp32 and bf16 "
+                  "codecs alike)",
         "per_shape": rows,
         "batch": {"streams": batch["streams"],
                   "positions": batch["positions"],
@@ -1323,7 +1544,10 @@ def rans_entry(name: str, timed_rans, max_err: int, launches_by_path, batch):
 
 SERVE_CLIENTS, SERVE_PER_CLIENT = 4, 4
 TILE_H, TILE_W = 2000, 3000  # a 6 MP camera photo; W not a multiple of 16
-TILE_IMAGE, TILE_LATENTS = 1024, (64, 32)  # halos: 64 pixels, 16 latents
+# Halos: 64 pixels, 16 latents. The 32-latent decode leg (3.1 s) was
+# dropped to keep the script inside its time with phase 11; its generator
+# window is still measured below.
+TILE_IMAGE, TILE_LATENTS = 1024, (64,)
 CLI_SIZES = ((IMAGE_H, IMAGE_W), (75, 93))
 
 
@@ -1341,21 +1565,20 @@ def zero_kernel_counts() -> None:
     from hific_tpu_torch.ops import fused_norm
 
     fused_norm.KERNEL.launches = 0
+    fused_norm.KERNEL.by_dtype.clear()
     device_rans.ENCODE_KERNEL.launches = 0
     device_rans.DECODE_KERNEL.launches = 0
 
 
-def params_npz(weights: str, state, config, tmp: str) -> str:
-    """The `-ckpt` of the serving and CLI phases: the artifact where it is
-    present, else the seeded weights written to an uncompressed `.npz` in
-    the artifact's layout (compressing 0.7 GB would take most of a
-    minute)."""
+def params_npz(state, config, tmp: str) -> str:
+    """The `-ckpt` of the serving and CLI phases: the weights (the
+    artifact's or the seeded ones) and `config` (which sets the compute
+    dtype the tools run in) written to an uncompressed `.npz` in the
+    artifact's layout (compressing 0.7 GB would take most of a minute)."""
     from hific_tpu_torch.models.hific import HiFiC
     from hific_tpu_torch.weights import (NPZ_CONFIG_KEY, NPZ_LEAF_PREFIX,
                                          jax_params_from_model)
 
-    if os.path.exists(weights):
-        return weights
     model = HiFiC(config)
     model.load_state_dict(state)
     entries = {NPZ_LEAF_PREFIX + k: v
@@ -1574,7 +1797,7 @@ def tiling_path(codec, card: str):
     compress(tile_image=1024, halo_image=64), both on the device encoder,
     each file decoded on the host coder to the symbols it encoded (gated),
     the symbols where the two encodes differ (measured);
-    decompress(as_uint8) against decompress(tile_latents=64) and (32), all
+    decompress(as_uint8) against decompress(tile_latents=64), both
     on the device decoder, the largest pixel differences (measured); one
     rANS launch per leg (gated); each leg's time and peak device memory,
     and the generator's peak on one tile-32 window by cuDNN mode. Returns
@@ -1627,7 +1850,7 @@ def tiling_path(codec, card: str):
     z_diff = int((enc_whole[0] != enc_tiled[0]).sum())
     pixel = {tile: int(np.abs(r_whole.astype(int) - r.astype(int)).max())
              for tile, r in r_tiled.items()}
-    window = TILE_LATENTS[-1] + 2 * 16  # the smallest tile's window
+    window = 32 + 2 * 16  # a 32-latent tile's window
     gen_peaks = generator_peaks(codec, window)
     summary = {
         "shape": [TILE_H, TILE_W], "bpp": whole.total_bpp,
@@ -1725,12 +1948,563 @@ def cli_path(codec, npz: str, card: str):
                "compress_pipeline_s": t_grouped, "decompress_s": t_dec}
     log(f"CLIs: compress per image {t_one:.1f} s, --pipeline 2 "
         f"{t_grouped:.1f} s, decompress {t_dec:.1f} s (each loads the "
-        f"weights and builds its tables); the two modes' .hfc equal the host "
+        f"weights; the tables come from the process' first build); the two "
+        f"modes' .hfc equal the host "
         f"coder's; PSNR "
         + ", ".join(f"{r['psnr']:.2f}" for r in rows) + " dB; decoded PNGs "
         f"equal the codec's pixels; launches norm {counts[0]}, rans_encode "
         f"{counts[1]}, rans_decode {counts[2]} ({card})")
     return counts, summary
+
+
+BF16_STEPS = 16    # the bf16 trainer's steps; the profiler takes 11-15
+BF16_TILES, BF16_TILE = 16, 320  # its corpus: uniformly sized seeded tiles
+# Tiny bf16 step, card vs CPU: each gradient leaf's distance from the fp32
+# step within 2x the CPU bf16 step's plus one bf16 ulp (a share of 1).
+BF16_GRAD_TOL = 1.0
+
+
+def transposed_leaves(model) -> set:
+    """Names of the transposed convs' parameters: bf16 leaves under a
+    bfloat16 config, as in the JAX package."""
+    from hific_tpu_torch.models.layers import ConvTranspose
+
+    return {f"{n}.{leaf}" for n, m in model.named_modules()
+            if isinstance(m, ConvTranspose) for leaf in ("weight", "bias")}
+
+
+def by_dtype(counter) -> dict:
+    return {str(k).replace("torch.", ""): v for k, v in counter.items()}
+
+
+def bf16_codec_path(config, state, card: str):
+    """The flagship codec under dtype="bfloat16": compress_file -> .hfc ->
+    decompress_file of the seeded 768x512 image (symbols lossless; the
+    norm kernel 29 times, norm_in's on the fp32 decoded latents, the rest
+    bf16; each rANS kernel once, the encoder once more where the
+    uncalibrated image overruns its caps), then the batch path at
+    bench.py's operating point (its factorized tables are the fp32
+    codec's, from the process' cache: the hyperlatent density is float32
+    in either dtype). Returns (round trip launches by kernel,
+    batch launches, batch summary, round-trip summary)."""
+    from hific_tpu_torch.codec import Codec
+    from hific_tpu_torch.entropy import device_rans
+    from hific_tpu_torch.entropy.container import load_compressed
+    from hific_tpu_torch.ops import fused_norm
+
+    t0 = time.perf_counter()
+    codec = Codec(config.replace(dtype="bfloat16"), state, device="cuda")
+    codec.build_tables()
+    bf16 = {n for n, p in codec.model.named_parameters()
+            if p.dtype == torch.bfloat16}
+    if bf16 != transposed_leaves(codec.model):
+        raise AssertionError(f"bf16 codec: bf16 parameters {sorted(bf16)}")
+    log(f"bf16 codec built with its tables in {time.perf_counter() - t0:.1f}"
+        f" s; {len(bf16)} bf16 parameter tensors (the transposed convs')")
+    x = smooth_image(SEED)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "bf16.hfc")
+        zero_kernel_counts()
+        relaunched = codec.device_relaunches
+        torch.cuda.synchronize()
+        (actual_bpp, _), enc_ms = timed(lambda: codec.compress_file(x, path))
+        recon, dec_ms = timed(lambda: codec.decompress_file(path,
+                                                            as_uint8=True))
+        counts = kernel_counts()
+        norm_dtypes = by_dtype(fused_norm.KERNEL.by_dtype)
+        relaunched = codec.device_relaunches - relaunched
+        out = load_compressed(path)
+        z_enc, y_enc, *_ = codec.encode_symbols(x)
+        z_dec, y_dec, _ = codec.decode_symbols(out)
+        warm = [(timed(lambda: codec.compress_file(x, path))[1],
+                 timed(lambda: codec.decompress_file(path, as_uint8=True))[1])
+                for _ in range(3)]
+    n = len(main_path_norm_shapes(config, IMAGE_H, IMAGE_W))
+    if counts[0] != n or norm_dtypes != {"float32": 1, "bfloat16": n - 1}:
+        raise AssertionError(f"bf16 round trip: {counts[0]} norm launches "
+                             f"by dtype {norm_dtypes}; expected {n}, norm_in "
+                             f"float32 and the rest bfloat16")
+    if counts[1:] != (1 + relaunched, 1):
+        raise AssertionError(f"bf16 round trip: {counts[1:]} rans_encode/"
+                             f"rans_decode launches; expected "
+                             f"({1 + relaunched}, 1)")
+    if not (np.array_equal(z_enc, z_dec) and np.array_equal(y_enc, y_dec)):
+        raise AssertionError("bf16: decoded symbols differ from the encoded")
+    if recon.shape != x.shape or recon.dtype != np.uint8:
+        raise AssertionError(f"bf16 reconstruction {recon.shape} "
+                             f"{recon.dtype}")
+    enc_warm = float(np.median([w[0] for w in warm]))
+    dec_warm = float(np.median([w[1] for w in warm]))
+    log(f"bf16 round trip {IMAGE_W}x{IMAGE_H}: norm launches {norm_dtypes}, "
+        f"rans_encode {counts[1]} ({relaunched} past the caps), rans_decode "
+        f"{counts[2]}; symbols equal; {actual_bpp:.4f} bpp; first "
+        f"compress_file {enc_ms:.1f} ms, decompress_file {dec_ms:.1f} ms; "
+        f"warm (median of 3) {enc_warm:.1f} and {dec_warm:.1f} ms ({card})")
+    tf32 = tf32_named_kernels(codec, x)
+    entry_counts, entry_dtypes, entry = bf16_entry_points(codec, config,
+                                                          state, card)
+    (enc_launches, dec_launches), _, batch = batch_path(codec, card)
+    del codec
+    torch.cuda.empty_cache()
+    return (counts, (enc_launches, dec_launches), batch,
+            {"compress_file_ms": enc_warm, "decompress_file_ms": dec_warm,
+             "norm_launches_by_dtype": norm_dtypes,
+             "entry_counts": entry_counts,
+             "entry_norm_launches_by_dtype": entry_dtypes,
+             "entry_points": entry, "tf32_named_kernels": tf32})
+
+
+def bf16_entry_points(codec, config, state, card: str):
+    """The compress and decompress CLIs and the serving daemon on a params
+    `.npz` whose config says bfloat16, as a user runs them on the
+    artifact: one 768x512 PNG through `cli.compress.main` and
+    `cli.decompress.main`, then SERVE_CLIENTS clients POSTing one image
+    each to /compress and the bodies to /decompress. Gates: every `.hfc`
+    carries the bfloat16 prefix and equals the bytes of `codec` (the bf16
+    codec of the same weights) with the host coder, every decoded image
+    `codec`'s pixels, the norm kernel launched on bfloat16 inputs and each
+    rANS kernel launched. Returns ((norm, rans_encode, rans_decode)
+    launches, norm launches by dtype, summary)."""
+    import threading
+    import urllib.request
+
+    from hific_tpu_torch.cli import compress as compress_cli
+    from hific_tpu_torch.cli import decompress as decompress_cli
+    from hific_tpu_torch.entropy.container import (BF16_MAGIC,
+                                                   dumps_compressed,
+                                                   load_compressed,
+                                                   loads_compressed)
+    from hific_tpu_torch.ops import fused_norm
+    from hific_tpu_torch.utils.image_io import (decode_image, encode_png,
+                                                read_image, write_png)
+
+    def check_body(body: bytes, x, what: str) -> None:
+        if not body.startswith(BF16_MAGIC) or body != dumps_compressed(
+                codec.compress(x, device_encode=False))[0]:
+            raise AssertionError(f"bf16 {what}: the .hfc is not the bf16 "
+                                 f"codec's host-coder bytes with the bf16 "
+                                 f"prefix")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = params_npz(state, config.replace(dtype="bfloat16"), tmp)
+        src, enc, dec = (os.path.join(tmp, d)
+                         for d in ("images", "hfc", "decoded"))
+        os.makedirs(src)
+        x = smooth_image(300)
+        write_png(os.path.join(src, "img.png"), x[0])
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        rows = compress_cli.main(["-ckpt", npz, "-i", src, "-o", enc])
+        (png,) = decompress_cli.main(["-ckpt", npz, "-i", enc, "-o", dec])
+        t_cli = time.perf_counter() - t0
+        with open(os.path.join(enc, "img.hfc"), "rb") as f:
+            check_body(f.read(), x, "CLI")
+        want = codec.decompress(load_compressed(os.path.join(enc, "img.hfc")),
+                                as_uint8=True)[0]
+        if not np.array_equal(read_image(png), want):
+            raise AssertionError("bf16 CLI: the decoded PNG is not the bf16 "
+                                 "codec's pixels")
+        server = build_server(npz)
+    try:
+        if server.service.codec.config.dtype != "bfloat16":
+            raise AssertionError("the server on a bf16 .npz is not bf16")
+        base = "http://%s:%d" % server.server_address[:2]
+        images = [smooth_image(310 + i) for i in range(SERVE_CLIENTS)]
+        bodies, pngs, errors = ([None] * SERVE_CLIENTS,
+                                [None] * SERVE_CLIENTS, [])
+
+        def post(path, body):
+            req = urllib.request.Request(base + path, data=body,
+                                         method="POST")
+            with urllib.request.urlopen(req, timeout=300) as r:
+                return r.read()
+
+        def client(i, leg):
+            try:
+                if leg == "compress":
+                    bodies[i] = post("/compress", encode_png(images[i][0]))
+                else:
+                    pngs[i] = post("/decompress", bodies[i])
+            except Exception as e:  # noqa: BLE001 -- raised below
+                errors.append(e)
+
+        t0 = time.perf_counter()
+        for leg in ("compress", "decompress"):
+            threads = [threading.Thread(target=client, args=(i, leg))
+                       for i in range(SERVE_CLIENTS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            if errors or any(t.is_alive() for t in threads):
+                raise AssertionError(f"bf16 serve clients failed: {errors}")
+        t_serve = time.perf_counter() - t0
+        counts = kernel_counts()
+        norm_dtypes = by_dtype(fused_norm.KERNEL.by_dtype)
+        for i, x in enumerate(images):
+            check_body(bodies[i], x, f"serve request {i}")
+            if not np.array_equal(
+                    decode_image(pngs[i]),
+                    codec.decompress(loads_compressed(bodies[i]),
+                                     as_uint8=True)[0]):
+                raise AssertionError(f"bf16 serve request {i}: the PNG is "
+                                     f"not the bf16 codec's pixels")
+    finally:
+        server.shutdown()
+        server.server_close()
+    if min(counts) == 0 or not norm_dtypes.get("bfloat16"):
+        raise AssertionError(f"bf16 CLI and serve: launches (norm, "
+                             f"rans_encode, rans_decode) {counts}, norm by "
+                             f"dtype {norm_dtypes}")
+    log(f"bf16 CLIs (compress, decompress one {IMAGE_W}x{IMAGE_H} PNG) in "
+        f"{t_cli:.1f} s, PSNR {rows[0]['psnr']:.2f} dB; bf16 server: "
+        f"{SERVE_CLIENTS} clients, one /compress and one /decompress each, "
+        f"in {t_serve:.2f} s; every .hfc the bf16 codec's bytes with the "
+        f"bf16 prefix, every image its pixels; launches norm {counts[0]} "
+        f"{norm_dtypes}, rans_encode {counts[1]}, rans_decode {counts[2]} "
+        f"({card})")
+    return counts, norm_dtypes, {"cli_s": t_cli, "serve_s": t_serve,
+                                 "psnr": rows[0]["psnr"]}
+
+
+# A layer computing in float32 on the codec's path holds a float64
+# computation of it within this share of its largest |output|: fp32
+# products and sums leave ~1e-6 there, TF32's 10-bit inputs ~1e-3. A
+# layer computing in bfloat16 (whose operands TF32's 10-bit mantissa holds
+# exactly) holds the float64 result rounded to bfloat16 within one ulp,
+# plus 2**-20 of its largest |output| for the fp32 sums near 0.
+TF32_FREE_REL = 2.0 ** -14
+
+
+def tf32_named_kernels(codec, x) -> dict:
+    """The layers of `codec` that launch a kernel with "tf32" in its name
+    in one compress + decompress of x: each leaf module runs inside a
+    `record_function` range that names it, its input dtype and cuDNN's
+    TF32 flag at the call, and each such kernel's launching op is walked up
+    to its range. For each such layer, how far its output on its captured
+    input, under the codec's numerics, lies from a float64 computation of
+    the same layer in its compute dtype, of its largest |output|; a layer
+    computing in float32 must stay within TF32_FREE_REL, one computing in
+    bfloat16 within one bf16 ulp (+ 2**-20 of its largest |output|) of the
+    float64 result rounded to bfloat16."""
+    import copy
+
+    from torch.autograd.profiler import record_function
+
+    from hific_tpu_torch.models.layers import Conv, ConvTranspose
+    from hific_tpu_torch.runtime import fp32_numerics
+
+    leaves = {n: m for n, m in codec.model.named_modules()
+              if n and not list(m.children())}
+    ranges, inputs, handles = [], {}, []
+
+    def pre(name):
+        def fn(module, args):
+            t = args[0] if args and torch.is_tensor(args[0]) else None
+            dtype = str(t.dtype).replace("torch.", "") if t is not None else ""
+            ranges.append(record_function(
+                f"layer:{name}:{dtype}:tf32="
+                f"{torch.backends.cudnn.allow_tf32}"))
+            ranges[-1].__enter__()
+            inputs.setdefault(name, args)
+        return fn
+
+    def post(module, args, out):
+        ranges.pop().__exit__(None, None, None)
+
+    for n, m in leaves.items():
+        handles += [m.register_forward_pre_hook(pre(n)),
+                    m.register_forward_hook(post)]
+    try:
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            codec.decompress(codec.compress(x), as_uint8=True)
+            torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+    found = {}
+    for evt in prof.events():
+        for k in getattr(evt, "kernels", []):
+            if "tf32" not in k.name:
+                continue
+            p = evt
+            while p is not None and not p.name.startswith("layer:"):
+                p = p.cpu_parent
+            tag = p.name if p is not None else f"layer:?({evt.name})::"
+            found.setdefault(tag, {"kernels": set(), "ops": set()})
+            found[tag]["kernels"].add(k.name)
+            found[tag]["ops"].add(evt.name)
+    report = {}
+    for tag, seen in found.items():
+        name = tag.split(":")[1]
+        entry = {"kernels": sorted(seen["kernels"]),
+                 "ops": sorted(seen["ops"]), "range": tag}
+        module, args = leaves.get(name), inputs.get(name)
+        if isinstance(module, (Conv, ConvTranspose)) and args is not None:
+            xin = args[0]
+            compute = (xin.dtype if isinstance(module, ConvTranspose)
+                       else module.dtype or torch.promote_types(
+                           xin.dtype, module.weight.dtype))
+            ref = copy.deepcopy(module)
+            with torch.no_grad():
+                for p in ref.parameters():
+                    p.data = p.data.to(compute).double()
+            ref.dtype = None
+            with fp32_numerics(deterministic=True), torch.inference_mode():
+                got = module(*args).double()
+                want = ref(xin.to(compute).double())
+            rel = float((got - want).abs().max() / want.abs().max())
+            entry.update(compute_dtype=str(compute).replace("torch.", ""),
+                         rel_err_vs_float64=rel)
+            if compute == torch.float32 and rel > TF32_FREE_REL:
+                raise AssertionError(
+                    f"{name} computes in float32 on the codec's path but "
+                    f"lies {rel:.2e} of its largest output from float64 "
+                    f"(limit {TF32_FREE_REL:.1e}): TF32 truncation ({entry})")
+            if compute == torch.bfloat16:
+                rounded = want.to(torch.bfloat16).double()
+                limit = (bf16_ulp(rounded.float()).double()
+                         + 2.0 ** -20 * want.abs().max())
+                share = float(((got - rounded).abs() / limit).max())
+                entry["share_of_bf16_limit"] = share
+                if share > 1.0:
+                    raise AssertionError(
+                        f"{name} computes in bfloat16 but lies {share:.2f} "
+                        f"of one bf16 ulp (+ 2**-20 of its largest output) "
+                        f"from float64 rounded to bfloat16 ({entry})")
+        report[name] = entry
+    log(f"kernels named tf32 in a bf16 round trip, by layer: "
+        f"{json.dumps(report) if report else 'none'}")
+    return report
+
+
+def write_tiles(directory: str, seed: int) -> str:
+    """BF16_TILES seeded smooth BF16_TILE-square PNGs (the device corpus)."""
+    from PIL import Image
+
+    os.makedirs(directory, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    yy, xx = np.meshgrid(np.linspace(0, 1, BF16_TILE),
+                         np.linspace(0, 1, BF16_TILE), indexing="ij")
+    for i in range(BF16_TILES):
+        img = np.stack([0.5 + 0.3 * np.sin(2 * np.pi * (
+            rng.uniform(0.5, 6) * yy + rng.uniform(0.5, 6) * xx)
+            + rng.uniform(0, 2 * np.pi)) for _ in range(3)], -1)
+        img += rng.normal(0, 0.03, img.shape)
+        Image.fromarray((np.clip(img, 0, 1) * 255 + 0.5).astype(np.uint8)
+                        ).save(os.path.join(directory, f"tile_{i:02d}.png"))
+    return directory
+
+
+def read_trace(directory: str) -> dict:
+    """The trainer's --profile_dir trace: per step (5 in the window) the
+    norm kernels by input dtype, the host-to-device copies and their bytes,
+    and the device busy share of the window."""
+    (name,) = [n for n in os.listdir(directory) if n.endswith(".json")]
+    with open(os.path.join(directory, name)) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    norms = {}
+    for e in kernels:
+        for kind, key in (("forward", "channel_norm_kernel"),
+                          ("backward", "channel_norm_bwd_kernel")):
+            if key in e["name"]:
+                dtype = "bfloat16" if "bfloat16" in e["name"] else "float32"
+                norms[(kind, dtype)] = norms.get((kind, dtype), 0) + 1
+    htod = [e for e in events if e.get("cat") == "gpu_memcpy"
+            and "HtoD" in e["name"]]
+    start = min(e["ts"] for e in events)
+    end = max(e["ts"] + e.get("dur", 0) for e in events)
+    steps = 5
+    return {
+        "trace": name,
+        "norm_launches_per_step": {f"{k}/{d}": v / steps
+                                   for (k, d), v in sorted(norms.items())},
+        "htod_copies_per_step": len(htod) / steps,
+        "htod_bytes": [e.get("args", {}).get("bytes") for e in htod],
+        "busy_share": sum(e["dur"] for e in kernels) / max(end - start, 1),
+        "window_ms": (end - start) / 1e3,
+    }
+
+
+def train_bf16_flagship(card: str, n_norms: int, n_res: int, exp_dir: str):
+    """`python -m hific_tpu_torch.cli.train -mt compression --dtype bfloat16
+    --use_remat --device_data --profile_dir <tmp> --steps 16`, in-process,
+    at the flagship's widths, batch 8 of 256x256 crops drawn on the card
+    from seeded tiles. Each step: finite loss; a nonzero gradient for every
+    codec parameter; the transposed convs' parameters and Adam moments
+    bf16, the rest fp32; the norm kernels launched with bf16 inputs, 29 +
+    2 x n_res forward (the residual blocks' norms again in the recompute)
+    and 29 backward. The trace exists and shows the same per step; no
+    host-to-device copy of a batch's size during the window. Then the
+    forward and backward, and a whole step, with and without remat on the
+    same state and batch: the forward and backward's peak must be lower
+    with remat. Returns (launches, summary)."""
+    from hific_tpu_torch.cli import train as train_cli
+    from hific_tpu_torch.ops import fused_norm
+    from hific_tpu_torch.runtime import fp32_numerics
+    from hific_tpu_torch.training.data import DeviceDataset
+    from hific_tpu_torch.training.losses import compression_loss
+    from hific_tpu_torch.training.train_step import (ingest_batch,
+                                                     make_train_step_g)
+
+    tiles = write_tiles(os.path.join(exp_dir, "tiles"), SEED + 7)
+    prof = os.path.join(exp_dir, "profile")
+    steps, transposed = [], None
+    fwd_want = {torch.bfloat16: n_norms + 2 * n_res}
+    bwd_want = {torch.bfloat16: n_norms}
+
+    def on_step(state, diag):
+        # One host wait a step, so that the profiled window's busy share is
+        # the steps'.
+        nonlocal transposed
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        if transposed is None:
+            transposed = transposed_leaves(state.model)
+        params = list(state.model.named_parameters())
+        for n, p in params:
+            want = torch.bfloat16 if n in transposed else torch.float32
+            moments = state.optimizer.state[p]
+            if not (p.dtype == moments["exp_avg"].dtype
+                    == moments["exp_avg_sq"].dtype == want):
+                raise AssertionError(f"bf16 step {state.step}: {n} is "
+                                     f"{p.dtype}, its moments "
+                                     f"{moments['exp_avg'].dtype}; want "
+                                     f"{want}")
+            if p.grad is None:
+                raise AssertionError(f"bf16 step {state.step}: no gradient "
+                                     f"for {n}")
+        live = torch.stack([p.grad.ne(0).any() for _, p in params]).cpu()
+        loss = float(diag["weighted_compression_loss"])
+        if not math.isfinite(loss):
+            raise AssertionError(f"bf16 step {state.step}: loss {loss}")
+        if not bool(live.all()):
+            dead = [n for (n, _), ok in zip(params, live) if not ok]
+            raise AssertionError(f"bf16 step {state.step}: a zero gradient "
+                                 f"for {dead}")
+        counts = (dict(fused_norm.KERNEL.by_dtype),
+                  dict(fused_norm.BACKWARD_KERNEL.by_dtype))
+        fused_norm.KERNEL.by_dtype.clear()
+        fused_norm.BACKWARD_KERNEL.by_dtype.clear()
+        if counts != (fwd_want, bwd_want):
+            raise AssertionError(f"bf16 step {state.step}: norm launches by "
+                                 f"dtype {counts}; expected "
+                                 f"{(fwd_want, bwd_want)}")
+        steps.append((now, time.perf_counter(), loss, float(diag["q_rate"])))
+
+    args = train_cli.parse_args([
+        "-mt", "compression", "--dtype", "bfloat16", "--use_remat",
+        "--device_data", "--profile_dir", prof, "--steps", str(BF16_STEPS),
+        "-d", tiles, "-bs", str(TRAIN_BATCH), "-crop", str(TRAIN_CROP),
+        "--uncalibrated_lpips_ok", "--device", "cuda", "--seed", str(SEED),
+        "--log_interval", "1000", "--save_interval", "1000",
+        "--experiments_dir", exp_dir])
+    zero_kernel_counts()
+    fused_norm.BACKWARD_KERNEL.launches = 0
+    for k in (fused_norm.KERNEL, fused_norm.BACKWARD_KERNEL):
+        k.by_dtype.clear()
+    t0 = time.perf_counter()
+    state = train_cli.run(args, on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = (fused_norm.KERNEL.launches,
+                fused_norm.BACKWARD_KERNEL.launches)
+    if len(steps) != BF16_STEPS or launches != (
+            BF16_STEPS * fwd_want[torch.bfloat16],
+            BF16_STEPS * bwd_want[torch.bfloat16]):
+        raise AssertionError(f"bf16 trainer: {len(steps)} steps, launches "
+                             f"{launches}")
+    trace = read_trace(prof)
+    want = {"backward/bfloat16": float(n_norms),
+            "forward/bfloat16": float(n_norms + 2 * n_res)}
+    if trace["norm_launches_per_step"] != want:
+        raise AssertionError(f"profiled bf16 steps: norm kernels per step "
+                             f"{trace['norm_launches_per_step']}; expected "
+                             f"{want}")
+    batch_bytes = TRAIN_BATCH * TRAIN_CROP * TRAIN_CROP * 3
+    big = [b for b in trace["htod_bytes"] if b is None or b >= batch_bytes]
+    if big:
+        raise AssertionError(f"profiled bf16 steps with --device_data: "
+                             f"host-to-device copies of {big} bytes (a batch "
+                             f"is {batch_bytes})")
+    times = [b[0] - a[1] for a, b in zip(steps, steps[1:])]
+    # times[k] is step k + 2's: warm, before the profiler, steps 3-10.
+    warm_ms = 1e3 * float(np.median(times[1:9]))
+    profiled_ms = 1e3 * float(np.median(times[9:14]))
+
+    # Peak device memory with and without remat, same state and batch (the
+    # model, its Adam state and the corpus resident in both): of the
+    # forward and backward, where remat acts, and of the whole step, whose
+    # peak Adam's foreach temporaries may set.
+    batch = next(DeviceDataset(tiles, TRAIN_CROP, TRAIN_BATCH, SEED,
+                               "cuda").batches())[0]
+    device = torch.device("cuda")
+    lpips_fn = train_cli.make_lpips_fn(args, device)
+    cfg = state.model.config
+
+    def forward_backward():
+        with fp32_numerics(deterministic=False):
+            state.model.zero_grad(set_to_none=True)
+            inter, _ = state.model(ingest_batch(batch, cfg, device),
+                                   state.generator, training=True)
+            compression_loss(cfg, inter, lpips_fn, state.step)[0].backward()
+
+    def peak_of(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _, ms = timed(fn)
+        return torch.cuda.max_memory_allocated() / 2 ** 30, ms
+
+    peaks = {}
+    for remat in (False, True, False, True):
+        state.model.generator.use_remat = remat
+        step_fn = make_train_step_g(cfg.replace(use_remat=remat), lpips_fn)
+        peaks[remat] = (peak_of(forward_backward),
+                        peak_of(lambda: step_fn(state, batch)))
+    state.model.generator.use_remat = True
+    (fb_remat, _), (step_remat, ms_remat) = peaks[True]
+    (fb_plain, _), (step_plain, ms_plain) = peaks[False]
+    if not fb_remat < fb_plain:
+        raise AssertionError(f"bf16 forward + backward peak with remat "
+                             f"{fb_remat:.3f} GiB not below without "
+                             f"{fb_plain:.3f} GiB")
+    summary = {
+        "warm_step_ms": warm_ms,
+        "profiled_step_ms": profiled_ms,
+        "step_ms": [1e3 * t for t in times],
+        "trainer_wall_s": wall,
+        "device_busy_share": trace["busy_share"],
+        "profiled_window_ms": trace["window_ms"],
+        "norm_launches_per_profiled_step": trace["norm_launches_per_step"],
+        "htod_copies_per_step": trace["htod_copies_per_step"],
+        "fwd_bwd_peak_gib_remat": fb_remat,
+        "fwd_bwd_peak_gib_no_remat": fb_plain,
+        "step_peak_gib_remat": step_remat,
+        "step_peak_gib_no_remat": step_plain,
+        "step_ms_remat": ms_remat,
+        "step_ms_no_remat": ms_plain,
+    }
+    for i, (_, _, loss, q) in enumerate(steps):
+        if i in (0, BF16_STEPS - 1):
+            log(f"bf16 train step {i + 1}: loss {loss:.4f}, q_bpp {q:.4f}")
+    log(f"bf16 trainer ({BF16_STEPS} flagship steps, bs {TRAIN_BATCH}, "
+        f"{TRAIN_CROP}x{TRAIN_CROP}, remat, device data, profiler on steps "
+        f"11-15) in {wall:.1f} s; warm step {warm_ms:.1f} ms (median of "
+        f"steps 3-10, host clock after synchronize; steps 11-15 under the "
+        f"profiler {profiled_ms:.1f} ms); trace "
+        f"{trace['trace']}: busy {trace['busy_share']:.0%} of "
+        f"{trace['window_ms']:.1f} ms, norm kernels per step "
+        f"{trace['norm_launches_per_step']}, host-to-device copies per step "
+        f"{trace['htod_copies_per_step']:g} (bytes {trace['htod_bytes'][:8]})"
+        f"; peak of the forward and backward {fb_remat:.3f} GiB with remat, "
+        f"{fb_plain:.3f} GiB without; of the whole step {step_remat:.3f} "
+        f"and {step_plain:.3f} GiB ({ms_remat:.1f} vs {ms_plain:.1f} ms) "
+        f"({card})")
+    return launches, summary
 
 
 def main() -> int:
@@ -1916,7 +2690,7 @@ def main() -> int:
     # codec before its calibration; phase 6f: the serving daemon under
     # concurrent clients.
     with tempfile.TemporaryDirectory() as tmp:
-        npz = params_npz(args.weights, state, config, tmp)
+        npz = params_npz(state, config, tmp)
         server = build_server(npz)
         try:
             cli_counts, cli = cli_path(server.service.codec, npz, card)
@@ -1947,6 +2721,24 @@ def main() -> int:
             card, len(train_shapes), ckpt, train_dir)
     print("gan:", json.dumps(gan), flush=True)
 
+    # Phase 11: this slice. The variants' tiny steps card vs CPU, then the
+    # flagship in bf16: the codec round trip and batch codec, and the
+    # trainer with remat, the corpus on the card and the profiler.
+    for overrides, loss_tol, grad_tol in (
+            ({"dtype": "bfloat16"}, 1e-3, BF16_GRAD_TOL),
+            ({"use_channel_norm": False}, 1e-4, 1e-3),
+            ({"sample_noise": True, "noise_dim": 4}, 1e-4, 1e-3),
+            ({"use_latent_mixture_model": True, "latent_channels_dlmm": 8},
+             1e-4, 1e-3)):
+        log(tiny_variant_step_card_vs_cpu(overrides, loss_tol, grad_tol))
+    bf16_rt, bf16_many, bf16_batch, bf16_codec = bf16_codec_path(
+        config, state, card)
+    print("bf16 batch path:", json.dumps(bf16_batch), flush=True)
+    with tempfile.TemporaryDirectory() as train_dir:
+        bf16_launches, bf16_train = train_bf16_flagship(
+            card, len(train_shapes), config.n_residual_blocks, train_dir)
+    print("bf16 train:", json.dumps(bf16_train), flush=True)
+
     log(f"total wall time {time.perf_counter() - T_START:.1f} s ({card})")
     print(json.dumps({"kernels": [{
         "name": "channel_norm",
@@ -1954,13 +2746,28 @@ def main() -> int:
         "source": "hific_tpu_torch/csrc/channel_norm.cu",
         "replaces": "hific_tpu/ops/pallas_norm.py:49",
         "launches": (launches + fwd_launches + serve_counts[0]
-                     + tile_counts[0] + cli_counts[0] + gan_fwd),
+                     + tile_counts[0] + cli_counts[0] + gan_fwd
+                     + bf16_rt[0] + bf16_codec["entry_counts"][0]
+                     + bf16_launches[0]),
         "launches_by_path": {"codec_round_trip": launches,
                              "serve": serve_counts[0],
                              "tiling": tile_counts[0],
                              "cli": cli_counts[0],
                              "train_steps": fwd_launches,
-                             "gan_train_steps": gan_fwd},
+                             "gan_train_steps": gan_fwd,
+                             "bf16_codec_round_trip": bf16_rt[0],
+                             "bf16_cli_and_serve":
+                                 bf16_codec["entry_counts"][0],
+                             "bf16_train_steps": bf16_launches[0]},
+        "dtypes": {"bf16_codec_round_trip":
+                   bf16_codec["norm_launches_by_dtype"],
+                   "bf16_cli_and_serve":
+                   bf16_codec["entry_norm_launches_by_dtype"],
+                   "bf16_train_steps": {"bfloat16": bf16_launches[0]},
+                   "other_paths": "float32"},
+        "bf16": {**summary["bf16"],
+                 "train_step_ms": bwd_summary["bf16"]["fwd_ms"],
+                 "train_step_bound_ms": bwd_summary["bf16"]["fwd_bound_ms"]},
         "max_abs_err": summary["max_abs_err"],
         "ms": summary["ms"],
         "plain_ms": summary["plain_ms"],
@@ -1975,9 +2782,14 @@ def main() -> int:
         "route": "cuda",
         "source": "hific_tpu_torch/csrc/channel_norm.cu",
         "replaces": "hific_tpu/ops/pallas_norm.py:74",
-        "launches": bwd_launches + gan_bwd,
+        "launches": bwd_launches + gan_bwd + bf16_launches[1],
         "launches_by_path": {"train_steps": bwd_launches,
-                             "gan_train_steps": gan_bwd},
+                             "gan_train_steps": gan_bwd,
+                             "bf16_train_steps": bf16_launches[1]},
+        "dtypes": {"bf16_train_steps": {"bfloat16": bf16_launches[1]},
+                   "other_paths": "float32"},
+        "bf16": {k: bwd_summary["bf16"][k]
+                 for k in ("ms", "plain_ms", "bound_ms")},
         "max_abs_err": bwd_summary["max_abs_err"],
         "ms": bwd_summary["ms"],
         "plain_ms": bwd_summary["plain_ms"],
@@ -1994,12 +2806,20 @@ def main() -> int:
                                "compress_many": enc_launches,
                                "serve": serve_counts[1],
                                "tiling": tile_counts[1],
-                               "cli": cli_counts[1]}),
+                               "cli": cli_counts[1],
+                               "bf16_codec_round_trip": bf16_rt[1],
+                               "bf16_cli_and_serve":
+                                   bf16_codec["entry_counts"][1],
+                               "bf16_compress_many": bf16_many[0]}),
               ("rans_decode", {"codec_round_trip": rt_rans[1],
                                "decompress_many": dec_launches,
                                "serve": serve_counts[2],
                                "tiling": tile_counts[2],
-                               "cli": cli_counts[2]}))]}))
+                               "cli": cli_counts[2],
+                               "bf16_codec_round_trip": bf16_rt[2],
+                               "bf16_cli_and_serve":
+                                   bf16_codec["entry_counts"][2],
+                               "bf16_decompress_many": bf16_many[1]}))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))
     return 0

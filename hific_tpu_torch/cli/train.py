@@ -26,6 +26,19 @@ trainer says so in a warning. Steps are
 absolute: a resumed or warmstarted run trains up to `--steps` in all.
 Runs on the card unless `--device cpu`.
 
+The JAX CLI's single-device options carry their meanings: `--dtype
+bfloat16` (bfloat16 convs, the transposed convs' parameters and moments in
+bfloat16), `--use_remat` (the generator's residual blocks recomputed in
+the backward), `--use_latent_mixture_model` (the DLMM hyperprior),
+`--device_data` (the corpus on the device once, crops drawn there; needs
+uniformly sized images), `--max_rss_gb` (checkpoint and exit when the
+host's resident memory passes it, checked at each log step; default 90% of
+system RAM, 0 disables) and `--profile_dir` (a `torch.profiler` trace of G
+steps 11-15, written as Chrome trace JSON). `--use_pallas_norm` is
+accepted and means nothing here: the norm always runs the CUDA kernel on a
+GPU tensor. `--data_parallel` and `--n_slices` are refused: multi-GPU
+training is not ported yet.
+
 `run` takes any iterator of (uint8 NHWC batch, bpp) pairs in place of the
 dataset, so a caller can drive the trainer with its own crops. LPIPS loads
 local files only (`--lpips_weights`, `--lpips_backbone_path`,
@@ -48,7 +61,11 @@ from hific_tpu_torch.config import ModelTypes, hific_config, mse_lpips_config
 from hific_tpu_torch.models.lpips import load_lpips
 from hific_tpu_torch.runtime import resolve_device
 from hific_tpu_torch.training import checkpoints
-from hific_tpu_torch.training.data import TrainDataset, prefetch
+from hific_tpu_torch.training.data import (
+    DeviceDataset,
+    TrainDataset,
+    prefetch,
+)
 from hific_tpu_torch.training.train_step import (
     TrainState,
     create_train_state,
@@ -83,6 +100,7 @@ def parse_args(argv=None):
     p.add_argument("--n_residual_blocks", type=int, default=9)
     p.add_argument("--latent_channels", type=int, default=220)
     p.add_argument("--hyperlatent_filters", type=int, default=320)
+    p.add_argument("--use_latent_mixture_model", action="store_true")
     p.add_argument("--no_lpips", action="store_true",
                    help="train without the perceptual term (k_P * LPIPS)")
     p.add_argument("--lpips_weights", default=None,
@@ -107,10 +125,37 @@ def parse_args(argv=None):
                         "step; the discriminator starts fresh")
     p.add_argument("--resume_ckpt", default=None)
     p.add_argument("--experiments_dir", default="experiments")
+    p.add_argument("--data_parallel", action="store_true",
+                   help="not ported: refused")
+    p.add_argument("--n_slices", type=int, default=None,
+                   help="not ported: refused")
+    p.add_argument("--device_data", action="store_true",
+                   help="upload the whole corpus to the device once and "
+                        "draw crops and flips there (no per-step batch "
+                        "upload; needs uniformly sized images that fit "
+                        "device memory, e.g. pre-cropped tiles)")
+    p.add_argument("--max_rss_gb", type=float, default=-1.0,
+                   help="checkpoint and exit cleanly if the host's resident "
+                        "memory exceeds this at a log step (default: 90%% "
+                        "of system RAM; 0 disables)")
+    p.add_argument("--dtype", default="float32",
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--use_remat", action="store_true",
+                   help="recompute the generator's residual blocks in the "
+                        "backward (less device memory, more compute)")
+    p.add_argument("--use_pallas_norm", action="store_true",
+                   help="accepted for the JAX CLI's command lines; the "
+                        "norm always runs its CUDA kernel here")
+    p.add_argument("--profile_dir", default=None,
+                   help="write a torch.profiler trace of steps 11-15 here")
     p.add_argument("--device", default=None,
                    help="torch device; the card (cuda) unless named")
     p.add_argument("--seed", type=int, default=42)
-    return p.parse_args(argv)
+    a = p.parse_args(argv)
+    if a.data_parallel or a.n_slices is not None:
+        p.error("--data_parallel / --n_slices: multi-GPU training is not "
+                "ported yet (ROADMAP.md section 1, multi-GPU)")
+    return a
 
 
 def build_config(a):
@@ -122,7 +167,10 @@ def build_config(a):
         n_residual_blocks=a.n_residual_blocks,
         latent_channels=a.latent_channels,
         hyperlatent_filters=a.hyperlatent_filters,
-        log_interval=a.log_interval, save_interval=a.save_interval)
+        use_latent_mixture_model=a.use_latent_mixture_model,
+        log_interval=a.log_interval, save_interval=a.save_interval,
+        dtype=a.dtype, use_remat=a.use_remat,
+        use_pallas_norm=a.use_pallas_norm)
     if a.model_type == ModelTypes.COMPRESSION_GAN:
         return hific_config(**kw)
     return mse_lpips_config(**kw)
@@ -150,6 +198,68 @@ def _nhwc(t: torch.Tensor, normalized: bool):
     if normalized:
         t = (t + 1.0) / 2.0
     return t.permute(0, 2, 3, 1).cpu().numpy()
+
+
+def _rss_gb() -> float:
+    """This process's resident memory in GB (0 where /proc does not say)."""
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS"):
+                    return int(line.split()[1]) / 1e6
+    except OSError:
+        pass
+    return 0.0
+
+
+def _max_rss_gb(flag: float) -> float:
+    """--max_rss_gb: negative means 90% of system RAM (0, no limit, where
+    /proc does not say)."""
+    if flag >= 0:
+        return flag
+    try:
+        with open("/proc/meminfo") as f:
+            return 0.9 * int(f.readline().split()[1]) / 1e6
+    except OSError:
+        return 0.0
+
+
+class _StepProfiler:
+    """--profile_dir: a torch.profiler trace from the end of G step 10 to
+    the end of G step 15, written to the directory as Chrome trace JSON."""
+
+    START, STOP = 10, 15
+
+    def __init__(self, directory: Optional[str], device: torch.device):
+        self.directory = directory
+        self.device = device
+        self.prof = None
+
+    def after_g_step(self, step: int) -> None:
+        if not self.directory:
+            return
+        if step == self.START:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self.prof = torch.profiler.profile(activities=activities)
+            self.prof.start()
+        elif step == self.STOP and self.prof is not None:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.prof.stop()
+            os.makedirs(self.directory, exist_ok=True)
+            path = os.path.join(
+                self.directory,
+                f"trace_steps_{self.START + 1}-{self.STOP}.json")
+            self.prof.export_chrome_trace(path)
+            self.prof = None
+            LOG.info("wrote profiler trace %s", path)
+
+    def close(self) -> None:
+        if self.prof is not None:  # the run ended inside the window
+            self.prof.stop()
+            self.prof = None
 
 
 def run(a, batches: Optional[Iterator] = None,
@@ -183,7 +293,14 @@ def run(a, batches: Optional[Iterator] = None,
     step_g = make_train_step_g(config, lpips_fn)
     step_d = make_train_step_d(config) if config.use_discriminator else None
     d_per_g = config.discriminator_steps if step_d is not None else 0
-    if batches is None:
+    if batches is None and a.device_data:
+        dataset = DeviceDataset(a.dataset_path, config.crop_size,
+                                config.batch_size, a.seed, device)
+        LOG.info("device-resident dataset: %s (%.0f MB on %s)",
+                 tuple(dataset.data.shape), dataset.data.numel() / 1e6,
+                 device)
+        batches = dataset.batches()  # on the device: no prefetch thread
+    elif batches is None:
         dataset = TrainDataset(a.dataset_path, config.crop_size, a.seed)
         batches = prefetch(dataset.batches(config.batch_size), size=4)
 
@@ -200,6 +317,8 @@ def run(a, batches: Optional[Iterator] = None,
         os.makedirs(recon_dir, exist_ok=True)
 
     writer = MetricWriter(os.path.join(exp_dir, "tensorboard"))
+    max_rss_gb = _max_rss_gb(a.max_rss_gb)
+    profiler = _StepProfiler(a.profile_dir, device)
     t0, last_step = time.perf_counter(), state.step
     d_pending = 0  # D steps still to take after the last G step
     try:
@@ -210,6 +329,7 @@ def run(a, batches: Optional[Iterator] = None,
             else:
                 diag = diagnostics = step_g(state, x)
                 d_pending = d_per_g
+                profiler.after_g_step(state.step)
             if on_step is not None:
                 on_step(state, diag)
             if d_pending:
@@ -221,7 +341,19 @@ def run(a, batches: Optional[Iterator] = None,
                 scalars["images_per_sec"] = (
                     (step - last_step) * config.batch_size * (1 + d_per_g)
                     / max(time.perf_counter() - t0, 1e-9))
+                scalars["host_rss_gb"] = _rss_gb()
                 writer.write(step, scalars, prefix="train/")
+                if max_rss_gb and scalars["host_rss_gb"] > max_rss_gb:
+                    # A checkpoint and a clean stop beat the kernel's
+                    # SIGKILL.
+                    path = checkpoints.save_checkpoint(ckpt_dir, state,
+                                                       config)
+                    raise SystemExit(
+                        f"host RSS {scalars['host_rss_gb']:.1f} GB > "
+                        f"--max_rss_gb {max_rss_gb:.1f}: checkpointed "
+                        f"{path}; resume with --resume_ckpt (or train "
+                        f"with --device_data to avoid per-step upload "
+                        f"retention)")
                 LOG.info("step %d | loss %.3f | q_bpp %.3f | %.1f img/s",
                          step, scalars["weighted_compression_loss"],
                          scalars["q_rate"], scalars["images_per_sec"])
@@ -246,6 +378,7 @@ def run(a, batches: Optional[Iterator] = None,
             if step >= config.n_steps:
                 break
     finally:
+        profiler.close()
         writer.close()
     if d_pending:
         LOG.warning("the batches ran out %d D step(s) short of step %d's "

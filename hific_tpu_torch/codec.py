@@ -74,12 +74,13 @@ from hific_tpu_torch.tiling import tiled_downsample_apply, tiled_upsample_apply
 ENC_SCALE = 16
 
 
-# The device work of the codec's methods runs in fp32 with TF32 off and
-# deterministic cuDNN. TF32 keeps ~3 digits, enough to move sigma across a
-# scale-table boundary, and an index that differs between encoder and decoder
-# desyncs the rANS lanes; deterministic algorithms keep the encoder's and the
-# decoder's synth_stats bit-identical on one card. The settings hold for the
-# call only, so a trainer in the same process keeps its own.
+# The device work of the codec's methods runs with TF32 off and
+# deterministic cuDNN, in the config's dtype. TF32 keeps ~3 digits, enough
+# to move sigma across a scale-table boundary, and an index that differs
+# between encoder and decoder desyncs the rANS lanes; deterministic
+# algorithms keep the encoder's and the decoder's synth_stats bit-identical
+# on one card, in bfloat16 as in float32. The settings hold for the call
+# only, so a trainer in the same process keeps its own.
 _codec_numerics = fp32_numerics(deterministic=True)
 
 
@@ -95,7 +96,7 @@ def _lanes(t: torch.Tensor) -> torch.Tensor:
 
 
 def _output(z_encoded, y_encoded, hyper_spatial, spatial_shape, hyper_coding,
-            latent_coding, batch, hyper_bits, latent_bits
+            latent_coding, batch, hyper_bits, latent_bits, compute_dtype
             ) -> CompressionOutput:
     n_pixels = float(np.prod(spatial_shape))
     return CompressionOutput(
@@ -112,6 +113,7 @@ def _output(z_encoded, y_encoded, hyper_spatial, spatial_shape, hyper_coding,
         hyperlatent_bpp=hyper_bits / n_pixels,
         latent_bpp=latent_bits / n_pixels,
         total_bpp=(hyper_bits + latent_bits) / n_pixels,
+        compute_dtype=compute_dtype,
     )
 
 
@@ -136,9 +138,20 @@ class _StagedEncode(NamedTuple):
 
 
 class Codec:
-    """Evaluation-mode compression/decompression engine."""
+    """Evaluation-mode compression/decompression engine, in the config's
+    compute dtype (`Config.dtype`) as the JAX package's `Codec`. A DLMM
+    or `sample_noise` config is refused: the JAX package has no compress
+    path for either (the DLMM prior is a training-only estimate, and its
+    codec draws no generator noise)."""
 
     def __init__(self, config: Config, state_dict, device=None):
+        refused = [name for name, on in (
+            ("use_latent_mixture_model", config.use_latent_mixture_model),
+            ("sample_noise", config.sample_noise)) if on]
+        if refused:
+            raise ValueError(f"no codec for a config with {' and '.join(refused)}"
+                             f": the JAX package has no compress path for it "
+                             f"either")
         self.device = resolve_device(device)
         self.config = config
         model = HiFiC(config)
@@ -224,7 +237,8 @@ class Codec:
             y_sym, idx)
         return _output(z_encoded, y_encoded, z_sym.shape[2:], spatial_shape,
                        hyper_coding_shape, latent_coding_shape,
-                       z_sym.shape[0], hyper_bits, latent_bits)
+                       z_sym.shape[0], hyper_bits, latent_bits,
+                       self.config.dtype)
 
     # ------------------------------------------------------------------ #
     # The device encoder
@@ -264,7 +278,8 @@ class Codec:
                           *default_caps(hy * wy, cy)),
                 EncodeJob(_lanes(z_sym), z_idx.expand(hz * wz, cz).contiguous(),
                           z_tables, *default_caps(hz * wz, cz, Z_SPILL_BITS)))
-        bits = torch.stack([hyper_bits, latent_bits]).float().view(torch.int32)
+        bits = torch.stack([hyper_bits.float(),
+                            latent_bits.float()]).view(torch.int32)
         return _StagedEncode(jobs, bits, (cz, hz, wz), cy)
 
     @staticmethod
@@ -310,7 +325,7 @@ class Codec:
             outputs.append(_output(
                 encoded[2 * i + 1], encoded[2 * i], (hz, wz), spatial_shape,
                 (cz, 1, 1), (item.y_channels, 1, 1), 1, hyper_bits,
-                latent_bits))
+                latent_bits, self.config.dtype))
         return outputs
 
     def compress(self, x, shape_bucket: Optional[int] = None,
@@ -381,6 +396,7 @@ class Codec:
         and the latent means mu on the device."""
         if not self._tables_built:
             self.build_tables()
+        self._check_compute_dtype(out)
         z_np, mu, idx = self._hyper_stats(out)
         y_np = self.conditional.decompress_symbols(out.latents_encoded,
                                                    _numpy(idx, np.int32))
@@ -398,10 +414,13 @@ class Codec:
         return z_np, mu, idx
 
     def _generate(self, y_hat, spatial_shape, as_uint8: bool) -> torch.Tensor:
-        """Latents -> NHWC reconstruction on the device."""
+        """Latents -> NHWC reconstruction on the device: uint8, mapped in
+        the model's dtype as the JAX package maps it, or float32."""
         recon = self.model.generate(y_hat, spatial_shape)
         if as_uint8:
             recon = (recon * 255.0 + 0.5).to(torch.uint8)
+        else:
+            recon = recon.float()
         return recon.permute(0, 2, 3, 1)
 
     def _host_latents(self, out: CompressionOutput) -> torch.Tensor:
@@ -439,6 +458,16 @@ class Codec:
             y_hat, scale=ENC_SCALE, tile=tile, halo=halo)
         h, w = spatial_shape
         return recon[:, :h, :w]
+
+    def _check_compute_dtype(self, out: CompressionOutput) -> None:
+        """Raise for a payload coded in another compute dtype: its coding
+        indices came from another hyper synthesis, so decoding it here
+        could desync the rANS lanes without an error."""
+        if out.compute_dtype != self.config.dtype:
+            raise ValueError(
+                f"payload coded by a {out.compute_dtype} codec; this codec "
+                f"computes in {self.config.dtype} (Config.dtype), whose "
+                f"coding indices may differ")
 
     @staticmethod
     def _device_decode_eligible(out: CompressionOutput) -> bool:
@@ -500,6 +529,8 @@ class Codec:
             self.build_tables()
         if not outs:
             return []
+        for out in outs:
+            self._check_compute_dtype(out)
         bad = None
         if self._use_device_decode(outs, device_decode):
             y_hats, bad = self._device_latents(outs)

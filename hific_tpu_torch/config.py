@@ -75,11 +75,15 @@ class Config:
     target_schedule: Schedule = Schedule(vals=(0.20 / 0.14, 1.0), steps=(50_000,))
     ignore_schedule: bool = False
 
-    # Compute. This package computes in float32 whatever `dtype` says.
-    # `use_pallas_norm`, `s2d_encoder_front` and `d2s_generator_tail` are
-    # layout choices of the TPU package: they are accepted so that configs
-    # parse, and the plain layers are computed (the norm always runs the
-    # CUDA kernel on a GPU tensor).
+    # Compute. `dtype` means what it means in the JAX package: "bfloat16"
+    # computes every conv stack in bfloat16 and keeps the transposed convs'
+    # parameters (and their Adam moments) in bfloat16; the rest of the
+    # parameters, and the density, stay float32. `use_remat` recomputes
+    # each generator residual block in the backward. `use_pallas_norm`,
+    # `s2d_encoder_front` and `d2s_generator_tail` are layout choices of
+    # the TPU package: they are accepted so that configs parse, and the
+    # plain layers are computed (the norm always runs the CUDA kernel on a
+    # GPU tensor).
     dtype: str = "float32"
     use_pallas_norm: bool = False
     s2d_encoder_front: bool = False

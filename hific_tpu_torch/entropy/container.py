@@ -10,6 +10,13 @@ package's `entropy/container.py`, byte for byte the same format:
   uint32 byte length + raw uint32 rANS words, hyperlatents; magic
   uint32 byte length + raw uint32 rANS words, latents; magic
 
+A file of a bfloat16 codec is the same body prefixed with 0xFF 0xFF
+"HFCb": its coding indices come from a bfloat16 hyper synthesis, so a
+codec of another compute dtype must not decode it, and the prefix lets the
+reader know (`CompressionOutput.compute_dtype`). A float32 file has no
+prefix and stays byte for byte the JAX package's; the JAX package's reader
+refuses a prefixed file as corrupt.
+
 Version 2 files (lane-sharded streams, prefixed 0xFF 0xFF "HFC2") come from
 the JAX package's multithreaded coder, which is not ported yet: reading one
 raises.
@@ -23,6 +30,7 @@ import numpy as np
 
 MAGIC = b"\x46\xE2\x84\x92"
 V2_MAGIC = b"\xff\xffHFC2"
+BF16_MAGIC = b"\xff\xffHFCb"
 
 
 class CompressionOutput(NamedTuple):
@@ -40,6 +48,8 @@ class CompressionOutput(NamedTuple):
     hyperlatent_bpp: float = 0.0
     latent_bpp: float = 0.0
     total_bpp: float = 0.0
+    # the codec's compute dtype (`Config.dtype`), serialized as the prefix
+    compute_dtype: str = "float32"
 
 
 def _write_u16(f, values):
@@ -61,6 +71,11 @@ def _read_u16(f, n):
 
 
 def _save_to(f, out: CompressionOutput) -> None:
+    if out.compute_dtype == "bfloat16":
+        f.write(BF16_MAGIC)
+    elif out.compute_dtype != "float32":
+        raise ValueError(f"no container for compute dtype "
+                         f"{out.compute_dtype!r}")
     _write_u16(f, out.hyperlatent_spatial_shape)
     _write_u16(f, out.spatial_shape)
     _write_u16(f, out.hyper_coding_shape)
@@ -75,10 +90,13 @@ def _save_to(f, out: CompressionOutput) -> None:
 
 
 def _load_from(f) -> CompressionOutput:
-    if f.read(len(V2_MAGIC)) == V2_MAGIC:
+    prefix = f.read(len(V2_MAGIC))
+    if prefix == V2_MAGIC:
         raise ValueError("container v2 (sharded streams) is not supported "
                          "by hific_tpu_torch yet")
-    f.seek(0)
+    compute_dtype = "bfloat16" if prefix == BF16_MAGIC else "float32"
+    if compute_dtype == "float32":
+        f.seek(0)
     hyper_spatial = _read_u16(f, 2)
     spatial = _read_u16(f, 2)
     hyper_coding = _read_u16(f, 3)
@@ -100,6 +118,7 @@ def _load_from(f) -> CompressionOutput:
         hyper_coding_shape=hyper_coding,
         latent_coding_shape=latent_coding,
         batch_shape=batch,
+        compute_dtype=compute_dtype,
     )
 
 

@@ -8,6 +8,7 @@ float32 arithmetic of `host_math`, which makes them byte-identical to the
 JAX package's.
 """
 
+import collections
 import copy
 from typing import Optional, Tuple
 
@@ -19,6 +20,7 @@ from hific_tpu_torch.entropy.tables import (
     SCALES_MIN,
     build_factorized_tables,
     build_scale_tables,
+    check_factorized_channels,
     prior_scale_table,
 )
 from hific_tpu_torch.models.density import (
@@ -27,6 +29,14 @@ from hific_tpu_torch.models.density import (
     HyperlatentDensity,
 )
 from hific_tpu_torch.ops import maths
+
+
+# Factorized tables by density: a codec built again in one process on the
+# same weights (the compress and decompress tools, the server, a test
+# module) takes them from here instead of searching again (~8 s for 320
+# channels). A pure function of the key, so a hit is the same tables.
+_TABLES_KEPT = 8
+_tables_by_density: "collections.OrderedDict" = collections.OrderedDict()
 
 
 class FactorizedEntropyModel:
@@ -46,9 +56,21 @@ class FactorizedEntropyModel:
     def build_tables(self) -> CdfTables:
         """The tails and medians come from the JAX package's search, step
         for step in its float32 arithmetic (`host_math.factorized_tails`),
-        so the rows are its rows."""
+        so the rows are its rows; a channel count whose search it does not
+        follow is refused (`check_factorized_channels`). Built once: the
+        density is this model's own frozen copy; and once per process for
+        a density, tail mass and precision (the last few kept)."""
+        if self.tables is not None:
+            return self.tables
+        check_factorized_channels(self.n_channels)
         params = {name: p.numpy() for name, p in
                   self.density.named_parameters()}
+        key = (tuple((name, v.tobytes()) for name, v in params.items()),
+               self.tail_mass, self.precision, self.density.min_likelihood)
+        if key in _tables_by_density:
+            _tables_by_density.move_to_end(key)
+            self.tables, self.medians = _tables_by_density[key]
+            return self.tables
         target = float(np.log(2.0 / self.tail_mass - 1.0))
         lower, upper, self.medians = host_math.factorized_tails(
             params, [-target, target, 0.0])
@@ -59,6 +81,9 @@ class FactorizedEntropyModel:
 
         self.tables = build_factorized_tables(likelihood_fn, lower, upper,
                                               self.precision)
+        _tables_by_density[key] = (self.tables, self.medians)
+        while len(_tables_by_density) > _TABLES_KEPT:
+            _tables_by_density.popitem(last=False)
         return self.tables
 
     def _indices(self, batch: int, broadcast_shape) -> np.ndarray:

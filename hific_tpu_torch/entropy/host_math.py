@@ -294,13 +294,35 @@ def factorized_likelihood(params, x, min_likelihood: float) -> np.ndarray:
 # follow XLA's CPU code of that program (`--xla_dump_to`: the optimized HLO
 # and each fusion's object code), operation by operation. Where LLVM fuses
 # a product into the add that uses it, so do they; where the vector code
-# keeps them apart (the third filter of the first layer, the products with
-# more than one use), so do they. Measured bit-equal, every step, for
-# densities of 8 to 320 channels in multiples of 8 (the loops' 8-lane
-# vectors); with other channel counts XLA emits remainder code that this
-# does not follow.
+# keeps them apart (the third filter of the first layer in the vector
+# loop, the products with more than one use), so do they. Measured
+# bit-equal, every step, for densities of 2 to 72 channels and of 79 to
+# 333 (a sample), and of 8 to 320 in multiples of 8, on AVX-512 hosts. A
+# density of one channel compiles to another program, which this does not
+# follow (the table builder refuses it).
 
 _LOG1P_RATIONAL = 0.41421357  # |e| below: the rational form of log1p
+
+
+def first_layer_vector_channels(c: int) -> int:
+    """How many leading channels of c the tail search's first layer runs in
+    vector code; the rest run in the scalar remainder loop.
+
+    The layer's fusion loops over the channels, the three filters of each
+    unrolled inside. LLVM vectorizes that loop with 4 or 8 channels a
+    vector by the trip count, and the vector code computes the third
+    filter's softplus(H) * x and + b apart, where the scalar code fuses all
+    three. Read from the object code XLA dumps (`--xla_dump_to`) for c = 2
+    to 400 on an AVX-512 host: no vector loop below 16 channels except at
+    4 and 8; 4-channel vectors from 20 to 39 channels where c % 8 >= 4;
+    8-channel vectors otherwise."""
+    if c % 8 == 0 or c == 4:
+        return c
+    if c < 16:
+        return 0
+    if c < 40 and c % 8 >= 4:
+        return c - c % 4
+    return c - c % 8
 
 
 def _exp_compiled(x) -> np.ndarray:
@@ -410,6 +432,7 @@ def factorized_tails(params, targets, max_iters: int = 200_000,
     ta = [tanh(params[f"a_{k}"])[..., 0] for k in range(4)]
     b = [np.asarray(params[f"b_{k}"], F32)[..., 0] for k in range(4)]
     c = b[0].shape[0]
+    vec = first_layer_vector_channels(c)
     sp0, sp3 = sp[0][..., 0], sp[3][:, 0, :]     # (C, 3) and (C, 3)
     ta3, b3 = ta[3][:, 0], b[3][:, 0]
     n = len(targets)
@@ -426,7 +449,7 @@ def factorized_tails(params, targets, max_iters: int = 200_000,
         t, tg = tails[live], target[live]
         # Forward: x_k the layer's input to tanh, l_k its output.
         x1 = _fma32(sp0, t[..., None], b[0])
-        x1[..., 2] = sp0[:, 2] * t + b[0][:, 2]  # kept apart by the vectors
+        x1[..., :vec, 2] = sp0[:vec, 2] * t[..., :vec] + b[0][:vec, 2]
         t1 = _tanh32(x1)
         l1 = _fma32(ta[0], t1, x1)
         x2 = _matvec(sp[1], l1) + b[1]

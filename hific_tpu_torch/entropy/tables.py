@@ -4,6 +4,8 @@ package's `entropy/tables.py`.
 - `build_factorized_tables`: per-channel quantized CDFs of the learned
   hyperlatent density, between tails found by `host_math.factorized_tails`
   (the JAX package's `estimate_tails` search in its float32 arithmetic).
+  `check_factorized_channels` refuses the one channel count (1) whose
+  search it does not reproduce.
 - `build_scale_tables`: one CDF row per entry of the log-spaced scale table
   of the conditional latent prior.
 """
@@ -19,6 +21,21 @@ from hific_tpu_torch.ops.maths import pmf_to_quantized_cdf
 SCALES_MIN = 0.11
 SCALES_MAX = 256.0
 SCALES_LEVELS = 64
+
+
+def check_factorized_channels(n_channels: int) -> None:
+    """Raise for a hyperlatent density of one channel: XLA compiles its
+    tail search to another program (the products become fusions of their
+    own), which `host_math.factorized_tails` does not follow, so its tails
+    could differ from the JAX package's in their last bits, and so could
+    the tables. Refused rather than written differently; the open item is
+    ROADMAP.md section 3."""
+    if n_channels < 2:
+        raise ValueError(
+            f"factorized tables of {n_channels} hyperlatent channel: the "
+            f"tail search of a one-channel density is not followed, so its "
+            f"tables could differ from the JAX package's (see ROADMAP.md "
+            f"section 3)")
 
 
 class CdfTables(NamedTuple):

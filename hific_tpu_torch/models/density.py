@@ -6,6 +6,8 @@ package's `models/density.py`.
   1-D maps evaluated for all channels at once as batched matrix products.
 - `latent_likelihood`: the boxcar-convolved Gaussian/logistic likelihood of
   the conditional latent prior.
+- `dlmm_log_likelihood`: the discretized logistic-mixture log-likelihood of
+  the DLMM hyperprior (a training-only estimate).
 
 Both bound their likelihoods with `lower_bound_toward`, whose gradient rule
 is the JAX package's, so they train as they do there.
@@ -16,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from hific_tpu_torch.models.hyper import unpack_likelihood_params
 from hific_tpu_torch.ops.maths import (
     lower_bound_toward,
     standardized_cdf_gaussian,
@@ -23,6 +26,7 @@ from hific_tpu_torch.ops.maths import (
 )
 
 MIN_SCALE = 0.11
+LOG_SCALES_MIN = -3.0
 MIN_LIKELIHOOD = 1e-9
 TAIL_MASS = 2 ** (-8)
 PRECISION_P = 16
@@ -45,6 +49,24 @@ def latent_likelihood(x, mean, scale, likelihood_type: str = "gaussian",
     cdf_upper = cdf((0.5 - xc) / scale)
     cdf_lower = cdf(-(0.5 + xc) / scale)
     return lower_bound_toward(cdf_upper - cdf_lower, min_likelihood)
+
+
+def dlmm_log_likelihood(x, dlmm_params, likelihood_type: str = "gaussian",
+                        min_likelihood: float = MIN_LIKELIHOOD):
+    """Discretized mixture log-likelihood of x (N, C, H, W) under the K
+    components of dlmm_params (N, 3 C K, H, W): log sum_k pi_k P_k(x), each
+    P_k the boxcar-convolved CDF difference around its mean at its bounded
+    log-scale. Returns (N, C, H, W)."""
+    cdf = standardized_cdf(likelihood_type)
+    x, (logit_pis, means, log_scales), _ = unpack_likelihood_params(
+        x, dlmm_params, LOG_SCALES_MIN)
+    xc = torch.abs(x - means)
+    inv_stds = torch.exp(-log_scales)
+    cdf_upper = cdf(inv_stds * (0.5 - xc))
+    cdf_lower = cdf(inv_stds * (-0.5 - xc))
+    pmf_k = lower_bound_toward(cdf_upper - cdf_lower, min_likelihood)
+    lse_in = torch.log_softmax(logit_pis, dim=2) + torch.log(pmf_k)
+    return torch.logsumexp(lse_in, dim=2)
 
 
 class HyperlatentDensity(nn.Module):
@@ -74,8 +96,10 @@ class HyperlatentDensity(nn.Module):
                  getattr(self, f"b_{k}")) for k in range(self.n_layers)]
 
     def cdf_logits(self, x):
-        """CDF logits at `x` of shape (C, 1, M)."""
-        logits = x
+        """CDF logits at `x` of shape (C, 1, M). A bfloat16 x is widened
+        to the parameters' float32 at the first product, where the JAX
+        package's einsum promotes it."""
+        logits = x.to(self.H_0.dtype)
         for h, a, b in self.layers():
             logits = torch.bmm(F.softplus(h), logits) + b
             logits = logits + torch.tanh(a) * torch.tanh(logits)

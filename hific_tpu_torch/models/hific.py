@@ -6,6 +6,15 @@ Counterpart of the JAX package's `models/hific.py`: the training forward
 `compress_front_from_latents`, `generate`) and `discriminator_forward`.
 Tensors are NCHW, stored channels-last.
 
+Every model configuration of the JAX package's `HiFiC` builds: channel or
+instance norm (`use_channel_norm`), the Gaussian or DLMM hyperprior
+(`use_latent_mixture_model`, a training-only estimate whose codec-side
+methods do not exist), `sample_noise`, `use_remat`, and the compute dtype
+(`dtype`: every conv stack in bfloat16 under "bfloat16", the transposed
+convs' parameters bfloat16 leaves). The rates and the losses see the
+tensors' own dtypes, as in the JAX package: a bfloat16 latent rate is
+summed in bfloat16 and meets the float32 hyperlatent rate in float32.
+
 The discriminator is a module of its own, not a submodule of `HiFiC`: the
 codec's `state_dict` (and so `export_params_npz`, `Codec` and a
 compression checkpoint) holds the codec only, as the JAX package's
@@ -23,8 +32,17 @@ from hific_tpu_torch.models.density import HyperlatentDensity, latent_likelihood
 from hific_tpu_torch.models.discriminator import Discriminator
 from hific_tpu_torch.models.encoder import Encoder
 from hific_tpu_torch.models.generator import Generator
-from hific_tpu_torch.models.hyperprior import HyperInfo, Hyperprior
-from hific_tpu_torch.models.layers import Conv, ConvTranspose, SNConv
+from hific_tpu_torch.models.hyperprior import (
+    HyperInfo,
+    Hyperprior,
+    HyperpriorDLMM,
+)
+from hific_tpu_torch.models.layers import (
+    Conv,
+    ConvTranspose,
+    SNConv,
+    compute_dtype,
+)
 from hific_tpu_torch.ops.padding import pad_factor
 
 
@@ -50,31 +68,35 @@ def _bits(likelihood) -> torch.Tensor:
 class HiFiC(nn.Module):
     def __init__(self, config: Config):
         super().__init__()
-        unsupported = [name for name, bad in (
-            ("instance norm", not config.use_channel_norm),
-            ("the DLMM hyperprior", config.use_latent_mixture_model),
-            ("sample_noise", config.sample_noise)) if bad]
-        if unsupported:
-            raise NotImplementedError(
-                f"hific_tpu_torch does not port {', '.join(unsupported)} yet")
         self.config = config
         C = config.effective_latent_channels
-        self.encoder = Encoder(C)
-        self.generator = Generator(C, config.n_residual_blocks)
-        self.hyperprior = Hyperprior(C, config.hyperlatent_filters,
-                                     likelihood_type=config.likelihood_type)
+        dtype = compute_dtype(config.dtype)
+        self.encoder = Encoder(C, norm_type=config.norm_type, dtype=dtype)
+        self.generator = Generator(
+            C, config.n_residual_blocks, norm_type=config.norm_type,
+            sample_noise=config.sample_noise, noise_dim=config.noise_dim,
+            use_remat=config.use_remat, dtype=dtype)
+        if config.use_latent_mixture_model:
+            self.hyperprior = HyperpriorDLMM(
+                C, config.hyperlatent_filters,
+                likelihood_type=config.likelihood_type, dtype=dtype)
+        else:
+            self.hyperprior = Hyperprior(
+                C, config.hyperlatent_filters,
+                likelihood_type=config.likelihood_type, dtype=dtype)
 
     def forward(self, x, generator: Optional[torch.Generator] = None,
                 training: bool = True):
         """Compression forward of training (and validation, with
         `training=False`): x (N, 3, H, W), H and W multiples of 64, no
-        padding. The quantization noise comes from `generator`. Returns
-        (Intermediates, HyperInfo)."""
+        padding. The quantization noise, and the generator's with
+        `sample_noise`, come from `generator`. Returns (Intermediates,
+        HyperInfo)."""
         spatial_shape = tuple(x.shape[2:])
         y = self.encoder(x)
         info: HyperInfo = self.hyperprior(y, spatial_shape, generator,
                                           training)
-        reconstruction = self.generator(info.decoded)
+        reconstruction = self.generator(info.decoded, generator)
         if self.config.normalize_input_image:
             reconstruction = torch.tanh(reconstruction)
         return Intermediates(x, reconstruction, info.decoded,
@@ -104,13 +126,15 @@ class HiFiC(nn.Module):
         sigma that differs in its last bits between encoder and decoder can
         move an index across a table boundary and desynchronize the rANS
         lanes, so the encoder and the decoder run this same function, on
-        the same device, in fp32, with cuDNN deterministic and without TF32
-        (`codec.py` sets both).
+        the same device, in the config's dtype, with cuDNN deterministic and
+        without TF32 (`codec.py` sets both).
         index = number of entries of scale_table[:-1] strictly below sigma.
         """
         mu, sigma = self.hyperprior.synthesize(z_sym.to(torch.float32))
-        # On the (N, H, W, C) view, which channels-last makes contiguous.
-        idx = torch.bucketize(sigma.permute(0, 2, 3, 1), scale_table[:-1])
+        # On the (N, H, W, C) view, which channels-last makes contiguous;
+        # a bfloat16 sigma widens exactly, as the JAX package compares it.
+        idx = torch.bucketize(sigma.float().permute(0, 2, 3, 1),
+                              scale_table[:-1])
         idx = idx.to(torch.uint8).permute(0, 3, 1, 2)
         return mu, sigma, idx
 

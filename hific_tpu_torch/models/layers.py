@@ -6,14 +6,35 @@ and the arithmetic is torch's own: a reflect pad then a VALID `F.conv2d`,
 zero padding inside `F.conv2d`, and `F.conv_transpose2d` for the
 transposed convolutions. `SNConv` is the discriminator's spectrally
 normalised conv, with the JAX package's power iteration written out.
+
+Compute dtype, as the JAX layers use Flax's: a `Conv` given `dtype` keeps
+float32 parameters and computes in `dtype` (its input, weight and bias
+cast, its output in `dtype`); without one it computes in the promoted
+type of its input and weight. A `ConvTranspose` declares its parameters in
+`dtype` (float32 without one), so under bfloat16 they are bfloat16 leaves,
+and computes in its input's dtype, its weight and bias cast to it. `Norm`
+hands a bfloat16 input to the norm kernel's bfloat16 entry point with
+float32 gamma and beta, where the JAX package casts gamma and beta to
+bfloat16 and computes in it.
 """
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from hific_tpu_torch.ops.channel_norm import instance_norm
 from hific_tpu_torch.ops.fused_norm import channel_norm_fused
 from hific_tpu_torch.ops.padding import reflect_pad
+
+NORM_TYPES = ("channel", "instance")
+
+
+def compute_dtype(name: str) -> Optional[torch.dtype]:
+    """`Config.dtype` -> the layers' `dtype` argument: bfloat16, or None
+    (float32) as the JAX package's `HiFiC` maps it."""
+    return torch.bfloat16 if name == "bfloat16" else None
 
 
 class Conv(nn.Module):
@@ -22,13 +43,15 @@ class Conv(nn.Module):
 
     def __init__(self, in_features: int, features: int, kernel_size: int,
                  stride: int = 1, padding: int = 0,
-                 padding_mode: str = "zeros"):
+                 padding_mode: str = "zeros",
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         if padding_mode not in ("zeros", "reflect"):
             raise ValueError(f"unknown padding_mode {padding_mode!r}")
         self.stride = stride
         self.padding = padding
         self.padding_mode = padding_mode
+        self.dtype = dtype
         k = kernel_size
         self.weight = nn.Parameter(torch.empty(features, in_features, k, k))
         self.bias = nn.Parameter(torch.empty(features))
@@ -37,46 +60,62 @@ class Conv(nn.Module):
         pad = self.padding
         if self.padding_mode == "reflect":
             x, pad = reflect_pad(x, pad), 0
-        return F.conv2d(x, self.weight, self.bias, stride=self.stride,
-                        padding=pad)
+        dtype = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        return F.conv2d(x.to(dtype), self.weight.to(dtype),
+                        self.bias.to(dtype), stride=self.stride, padding=pad)
 
 
 class ConvTranspose(nn.Module):
     """torch.nn.ConvTranspose2d: out = (in - 1) * stride - 2 * padding +
-    kernel + output_padding. The weight is (I, O, kH, kW)."""
+    kernel + output_padding. The weight is (I, O, kH, kW), in `dtype`
+    (float32 without one); the product runs in x's dtype."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int,
-                 stride: int = 2, padding: int = 1, output_padding: int = 1):
+                 stride: int = 2, padding: int = 1, output_padding: int = 1,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.stride = stride
         self.padding = padding
         self.output_padding = output_padding
         k = kernel_size
-        self.weight = nn.Parameter(torch.empty(in_features, features, k, k))
-        self.bias = nn.Parameter(torch.empty(features))
+        dtype = dtype or torch.float32
+        self.weight = nn.Parameter(torch.empty(in_features, features, k, k,
+                                               dtype=dtype))
+        self.bias = nn.Parameter(torch.empty(features, dtype=dtype))
 
     def forward(self, x):
-        return F.conv_transpose2d(x, self.weight, self.bias,
-                                  stride=self.stride, padding=self.padding,
+        return F.conv_transpose2d(x, self.weight.to(x.dtype),
+                                  self.bias.to(x.dtype), stride=self.stride,
+                                  padding=self.padding,
                                   output_padding=self.output_padding)
 
 
 class Norm(nn.Module):
-    """ChannelNorm with learned affine and an optional fused ReLU.
+    """Channel or instance norm with learned float32 affine and an optional
+    trailing ReLU.
 
-    Always `channel_norm_fused`: the CUDA kernel on a GPU tensor, its plain
-    version on a CPU tensor.
+    Channel: `channel_norm_fused` with the ReLU fused, the CUDA kernel on a
+    GPU tensor (float32 or bfloat16, statistics in float32), its plain
+    version on a CPU tensor. Instance: plain torch, gamma and beta cast to
+    x's dtype as in the JAX package.
     """
 
-    def __init__(self, n_channels: int, activation: str = "none"):
+    def __init__(self, n_channels: int, activation: str = "none",
+                 norm_type: str = "channel"):
         super().__init__()
+        if norm_type not in NORM_TYPES:
+            raise ValueError(f"unknown norm type {norm_type!r}")
         self.activation = activation
+        self.norm_type = norm_type
         self.gamma = nn.Parameter(torch.ones(n_channels))
         self.beta = nn.Parameter(torch.zeros(n_channels))
 
     def forward(self, x):
-        return channel_norm_fused(x, self.gamma, self.beta,
-                                  act=self.activation)
+        if self.norm_type == "channel":
+            return channel_norm_fused(x, self.gamma, self.beta,
+                                      act=self.activation)
+        y = instance_norm(x, self.gamma.to(x.dtype), self.beta.to(x.dtype))
+        return torch.relu(y) if self.activation == "relu" else y
 
 
 # Every SNConv of the discriminator: 4x4, stride 2, reflect pad 1, and
@@ -96,7 +135,7 @@ class SNConv(nn.Module):
     one power iteration per call on the weight as an (O, I*kh*kw) matrix,
     v = l2n(W^T u) and u' = l2n(W v) without gradient, sigma = u' . (W v)
     with gradient through W, then a reflect pad of 1 and a VALID conv with
-    W / sigma, plus the bias. l2n(a) = a / (|a| + eps), as in JAX
+    W / sigma, plus the bias, both cast to x's dtype. l2n(a) = a / (|a| + eps), as in JAX
     (`torch.nn.utils.spectral_norm` divides by max(|a|, eps) and draws its
     own u).
 
@@ -124,5 +163,5 @@ class SNConv(nn.Module):
 
     def forward(self, x, update_stats: bool = True):
         weight = self.weight / self.sigma(update_stats)
-        return F.conv2d(reflect_pad(x, SN_PADDING), weight, self.bias,
-                        stride=SN_STRIDE)
+        return F.conv2d(reflect_pad(x, SN_PADDING), weight.to(x.dtype),
+                        self.bias.to(x.dtype), stride=SN_STRIDE)

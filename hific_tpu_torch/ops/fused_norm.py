@@ -16,6 +16,7 @@ the forward runs and nothing is saved. A tensor on the CPU takes the plain
 versions; a CUDA tensor launches the kernels or raises.
 """
 
+import collections
 import ctypes
 import os
 import threading
@@ -78,10 +79,12 @@ def _raise_on(err: int, what: str, x: torch.Tensor) -> None:
 
 
 class ChannelNormKernel:
-    """The forward kernel and its launch count (kernel launches only)."""
+    """The forward kernel and its launch count (kernel launches only), in
+    all and by input dtype."""
 
     def __init__(self):
         self.launches = 0
+        self.by_dtype = collections.Counter()
 
     def launch(self, x, gamma, beta, out, eps: float, relu: bool) -> None:
         lib = LIBRARY.load()
@@ -94,15 +97,17 @@ class ChannelNormKernel:
                      out.data_ptr(), n * h * w, c, eps, int(relu), stream)
         _raise_on(err, "channel_norm", x)
         self.launches += 1
+        self.by_dtype[x.dtype] += 1
 
 
 class ChannelNormBackwardKernel:
-    """The backward kernel, its launch count, and the count of incoming
-    gradients that were not channels-last and had to be copied (on any
-    device)."""
+    """The backward kernel, its launch count (in all and by input dtype),
+    and the count of incoming gradients that were not channels-last and had
+    to be copied (on any device)."""
 
     def __init__(self):
         self.launches = 0
+        self.by_dtype = collections.Counter()
         self.g_copies = 0
 
     def launch(self, x, g, gamma, beta, dx, eps: float, relu: bool,
@@ -130,6 +135,7 @@ class ChannelNormBackwardKernel:
                      stream)
         _raise_on(err, "channel_norm backward", x)
         self.launches += 1
+        self.by_dtype[x.dtype] += 1
         return dgb
 
 

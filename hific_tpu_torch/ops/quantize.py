@@ -47,3 +47,13 @@ def estimate_entropy(likelihood: torch.Tensor, spatial_shape: Sequence[int],
     n_pixels = float(math.prod(spatial_shape))
     n_bits = torch.sum(torch.log(likelihood + eps)) * (-LOG2_E) / batch_size
     return n_bits, n_bits / n_pixels
+
+
+def estimate_entropy_log(log_likelihood: torch.Tensor,
+                         spatial_shape: Sequence[int]
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`estimate_entropy` from log-likelihoods (the DLMM hyperprior's)."""
+    batch_size = log_likelihood.shape[0]
+    n_pixels = float(math.prod(spatial_shape))
+    n_bits = torch.sum(log_likelihood) * (-LOG2_E) / batch_size
+    return n_bits, n_bits / n_pixels

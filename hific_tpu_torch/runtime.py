@@ -27,7 +27,14 @@ def fp32_numerics(deterministic: bool):
     """Full fp32 convolutions and matrix products (TF32 off: cuDNN would
     otherwise run fp32 convolutions in TF32, ~3 digits), with cuDNN's
     autotuner off and its algorithms deterministic or not. The previous
-    settings come back on exit."""
+    settings come back on exit.
+
+    A bfloat16 config runs under the same settings: its convs compute in
+    bfloat16 (cuDNN accumulates them in fp32, as XLA does), and its fp32
+    parts (the density, the losses, the codec's hyper synthesis of the
+    fp32 symbols) need TF32 off as a float32 config's do. No bfloat16
+    product of the model goes to cuBLAS, so its reduced-precision
+    reduction setting is never read."""
     cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
     saved = (cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic,
              cudnn.benchmark)

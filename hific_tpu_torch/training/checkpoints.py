@@ -40,11 +40,14 @@ from hific_tpu_torch.weights import (
 
 CONFIG_FILENAME = "config.json"
 # The config fields that shape the codec or the meaning of its weights: a
-# warmstart source must agree with the target on each. The widths would
-# also fail `load_state_dict`; the likelihood and the input range would
-# load and train on the wrong model.
+# warmstart source must agree with the target on each. The widths and the
+# variants' extra layers would also fail `load_state_dict`; the
+# likelihood, the input range and the norm type would load and train on
+# the wrong model.
 CODEC_FIELDS = ("latent_channels", "n_residual_blocks", "hyperlatent_filters",
-                "likelihood_type", "normalize_input_image")
+                "likelihood_type", "normalize_input_image",
+                "use_channel_norm", "use_latent_mixture_model",
+                "latent_channels_dlmm", "sample_noise", "noise_dim")
 
 
 def save_checkpoint(directory: str, state: TrainState, config: Config

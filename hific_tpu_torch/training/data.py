@@ -1,11 +1,13 @@
 """Input pipelines; counterpart of the JAX package's `training/data.py`
-(`TrainDataset` with uint8 output, `EvalDataset`, `prefetch`).
+(`TrainDataset` with uint8 output, `DeviceDataset`, `EvalDataset`,
+`prefetch`).
 
-Random scale in [max(crop / short side, 0.75), 0.95], random crop to
-crop_size, horizontal flip; batches of uint8 NHWC crops (the train step
-maps them to floats on the device) with each source file's bpp, drawn by
-a pool of threads. Decoding needs Pillow: without it the dataset raises; a
-file Pillow cannot read is skipped.
+`TrainDataset`: random scale in [max(crop / short side, 0.75), 0.95],
+random crop to crop_size, horizontal flip; batches of uint8 NHWC crops (the
+train step maps them to floats on the device) with each source file's
+bpp, drawn by a pool of threads. `DeviceDataset`: the whole uint8 corpus on
+the device once, each batch's crops drawn there. Decoding needs Pillow:
+without it the datasets raise; a file Pillow cannot read is skipped.
 """
 
 import collections
@@ -16,7 +18,9 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
+import torch
 
+from hific_tpu_torch.runtime import resolve_device
 from hific_tpu_torch.utils.image_io import read_image
 
 IMG_EXTENSIONS = (".png", ".jpg", ".jpeg", ".bmp", ".ppm", ".webp")
@@ -124,6 +128,83 @@ class TrainDataset:
                 if len(imgs) == batch_size:
                     yield np.stack(imgs), np.asarray(bpps, np.float32)
                     imgs, bpps = [], []
+
+
+class DeviceDataset:
+    """The training corpus resident on the device: every image is uploaded
+    once as uint8, and each batch's image pick, crop offsets and flips are
+    drawn on the device from a device `torch.Generator` and gathered there,
+    so no batch crosses from the host during training.
+
+    As the JAX package's `DeviceDataset`: the images must share one shape,
+    at least crop_size on each side, and fit the device beside the model;
+    there is no random-scale jitter (for pre-cropped tiles the host
+    pipeline's scale stage is nearly a no-op); and the crops follow the
+    host pipeline's distribution, not its random stream. Batches are
+    uint8 NHWC device tensors, which the train step maps to floats as it
+    maps the host pipeline's. No mesh: one device, the card unless
+    `device` names another."""
+
+    def __init__(self, root_or_files, crop_size: int = 256,
+                 batch_size: int = 8, seed: int = 0, device=None):
+        files = (list_images(root_or_files)
+                 if isinstance(root_or_files, str) else list(root_or_files))
+        if not files:
+            raise ValueError("no training images found")
+        imgs, bpps, shape = [], [], None
+        for path in files:
+            img = _load_image(path)
+            if img is None:
+                continue
+            if shape is None:
+                shape = img.shape
+            if img.shape != shape:
+                raise ValueError(
+                    f"DeviceDataset needs uniformly-sized images: {path} is "
+                    f"{img.shape}, first was {shape}. Pre-crop the corpus "
+                    "(or use the host TrainDataset pipeline).")
+            if min(shape[0], shape[1]) < crop_size:
+                raise ValueError(f"images ({shape[0]}x{shape[1]}) smaller "
+                                 f"than crop_size {crop_size}")
+            imgs.append(img)
+            bpps.append(_source_bpp(path, img.shape))
+        if not imgs:
+            raise ValueError("no readable training images found")
+        self.data = torch.from_numpy(np.stack(imgs)).to(
+            resolve_device(device))  # (N, H, W, 3)
+        self.crop_size = crop_size
+        self.batch_size = batch_size
+        self.mean_bpp = float(np.mean(bpps))
+        self.generator = torch.Generator(device=self.data.device)
+        self.generator.manual_seed(seed)
+
+    def sample(self) -> torch.Tensor:
+        """One uint8 batch (B, crop, crop, 3) on the device: a uniform image
+        per row, uniform crop offsets, each crop flipped left-right with
+        probability 1/2, in one gather."""
+        n, h, w, _ = self.data.shape
+        b, crop, dev = self.batch_size, self.crop_size, self.data.device
+        g = self.generator
+        idx = torch.randint(0, n, (b,), generator=g, device=dev)
+        oy = torch.randint(0, h - crop + 1, (b,), generator=g, device=dev)
+        ox = torch.randint(0, w - crop + 1, (b,), generator=g, device=dev)
+        flip = torch.rand((b,), generator=g, device=dev) < 0.5
+        span = torch.arange(crop, device=dev)
+        rows = oy[:, None] + span
+        cols = ox[:, None] + torch.where(flip[:, None], span.flip(0), span)
+        return self.data[idx[:, None, None], rows[:, :, None],
+                         cols[:, None, :]]
+
+    def batches(self, batch_size: Optional[int] = None
+                ) -> Iterator[Tuple[torch.Tensor, np.ndarray]]:
+        """Infinite stream of (uint8 device batch, the corpus' mean bpp per
+        row). The batch size is fixed at construction."""
+        if batch_size is not None and batch_size != self.batch_size:
+            raise ValueError(f"batch_size {batch_size} != {self.batch_size}, "
+                             f"the one DeviceDataset was built for")
+        bpps = np.full((self.batch_size,), self.mean_bpp, np.float32)
+        while True:
+            yield self.sample(), bpps
 
 
 class EvalDataset:

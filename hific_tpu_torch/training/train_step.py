@@ -18,11 +18,18 @@ discriminator's 1e-4. A G step adds beta * G loss and steps the codec
 only; a D step runs the codec forward without gradient on its own batch
 and steps the discriminator only; only G steps move `state.step`.
 
+Under `dtype="bfloat16"` the step's convs run in bfloat16, and each Adam
+moment takes its parameter's dtype, as optax's does: the transposed convs'
+parameters and moments are bfloat16, every other leaf float32. The DLMM
+variant's rate terms come from its hyperprior (`HyperpriorDLMM`), and
+`sample_noise` draws the generator's noise from the state's generator
+after the quantization noise.
+
 Unlike the JAX package's pure functions, a step updates the state in place
 (parameters, optimizer moments, counters, noise generator, the
 discriminator's `u`): it saves a copy of every parameter and moment per
-step. Each step runs with TF32 off (`runtime.fp32_numerics`), the fp32
-arithmetic the CPU parity tests hold.
+step. Each step runs with TF32 off (`runtime.fp32_numerics`, in either
+dtype), the arithmetic the CPU parity tests hold.
 """
 
 import dataclasses
@@ -38,6 +45,7 @@ from hific_tpu_torch.models.hific import (
     discriminator_forward,
     init_random_,
 )
+from hific_tpu_torch.models.layers import compute_dtype
 from hific_tpu_torch.runtime import fp32_numerics, resolve_device
 from hific_tpu_torch.training.losses import compression_loss, gan_loss
 from hific_tpu_torch.training.schedules import scheduled_param
@@ -89,7 +97,8 @@ def create_train_state(config: Config, seed: int = 0, device=None
     noise = torch.Generator(device=device).manual_seed(seed + 1)
     state = TrainState(0, model, make_optimizers(config, model), noise)
     if config.use_discriminator:
-        disc = init_random_(Discriminator(config.effective_latent_channels),
+        disc = init_random_(Discriminator(config.effective_latent_channels,
+                                          compute_dtype(config.dtype)),
                             weights)
         state.disc = disc.to(device, memory_format=torch.channels_last)
         state.disc_optimizer = make_disc_optimizer(config, state.disc)

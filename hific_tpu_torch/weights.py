@@ -17,10 +17,13 @@ Every conversion is an exact permutation or an exact widening:
 - Norm gamma/beta and the density's H/a/b keep their shapes.
 - float16 leaves widen to float32. bfloat16 leaves (written by numpy as raw
   2-byte `|V2` records, since numpy has no bfloat16) are the high half of a
-  float32, so they widen exactly by a 16-bit shift.
+  float32, so they widen exactly by a 16-bit shift; under a bfloat16
+  config (`keep_bf16`) they stay bfloat16 tensors instead, the dtype of the
+  transposed convs' parameters there.
 
-`jax_params_from_model` inverts these permutations, so what this package
-trains exports in the JAX artifact layout (`training/checkpoints.py`,
+`jax_params_from_model` inverts these permutations (bfloat16 parameters
+widen exactly to float32), so what this package trains exports in the JAX
+artifact layout (`training/checkpoints.py`,
 `export_params_npz`). `lpips_state_dict_from_jax` carries the JAX
 package's LPIPS parameters (`models/lpips.py`) to this package's.
 
@@ -55,12 +58,25 @@ def bf16_bits_to_float32(a: np.ndarray) -> np.ndarray:
 
 def leaf_to_float32(a) -> np.ndarray:
     a = np.asarray(a)
-    # Raw `|V2` records and ml_dtypes' bfloat16 are both 2-byte void kinds.
-    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+    if _is_bf16_bits(a):
         return bf16_bits_to_float32(a)
     if np.issubdtype(a.dtype, np.floating):
         return a.astype(np.float32)
     raise ValueError(f"not a float parameter leaf: dtype {a.dtype}")
+
+
+def _is_bf16_bits(a: np.ndarray) -> bool:
+    # Raw `|V2` records and ml_dtypes' bfloat16 are both 2-byte void kinds.
+    return a.dtype.kind == "V" and a.dtype.itemsize == 2
+
+
+def leaf_to_tensor(a, keep_bf16: bool = False) -> torch.Tensor:
+    """A float leaf -> a float32 CPU tensor, or a bfloat16 one for a
+    bfloat16 leaf when `keep_bf16`."""
+    a = np.ascontiguousarray(a)
+    if keep_bf16 and _is_bf16_bits(a):
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(leaf_to_float32(a))
 
 
 def flatten_tree(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -77,10 +93,12 @@ def flatten_tree(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return flat
 
 
-def convert_leaf(path: str, value) -> Tuple[str, np.ndarray]:
-    """One JAX leaf -> (state_dict key, array in this package's layout)."""
+def convert_leaf(path: str, value, keep_bf16: bool = False
+                 ) -> Tuple[str, torch.Tensor]:
+    """One JAX leaf -> (state_dict key, CPU tensor in this package's
+    layout; see `leaf_to_tensor` for its dtype)."""
     parts = path.split("/")
-    a = leaf_to_float32(value)
+    a = leaf_to_tensor(value, keep_bf16)
     leaf = parts[-1]
     is_conv = len(parts) >= 2 and parts[-2] == "Conv_0"
     if leaf in ("kernel", "bias"):
@@ -88,38 +106,40 @@ def convert_leaf(path: str, value) -> Tuple[str, np.ndarray]:
         name = "weight" if leaf == "kernel" else "bias"
         if leaf == "kernel":
             if is_conv:   # HWIO -> OIHW
-                a = a.transpose(3, 2, 0, 1)
+                a = a.permute(3, 2, 0, 1)
             else:         # flipped HWIO -> (I, O, kH, kW)
-                a = a[::-1, ::-1].transpose(2, 3, 0, 1)
+                a = a.flip(0, 1).permute(2, 3, 0, 1)
         parts = module + [name]
-    return ".".join(parts), np.ascontiguousarray(a)
+    return ".".join(parts), a.contiguous()
 
 
-def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX param tree (nested or '/'-flat, numpy leaves) -> float32 CPU
-    state_dict for `HiFiC`."""
-    out = {}
-    for path, value in flatten_tree(params).items():
-        key, a = convert_leaf(path, value)
-        out[key] = torch.from_numpy(a)
-    return out
+def state_dict_from_jax(params: Mapping, keep_bf16: bool = False
+                        ) -> Dict[str, torch.Tensor]:
+    """JAX param tree (nested or '/'-flat, numpy leaves) -> CPU state_dict
+    for `HiFiC`: float32, and bfloat16 for bfloat16 leaves when
+    `keep_bf16` (a bfloat16 config's train state)."""
+    return dict(convert_leaf(path, value, keep_bf16)
+                for path, value in flatten_tree(params).items())
 
 
 def load_npz(path: str) -> Tuple[Config, Dict[str, torch.Tensor]]:
     """Read an `export_params_npz` artifact -> (config, state_dict).
 
-    The config's compute dtype is set to float32, the only one this package
-    computes in: the weights are exact either way, and the reference runs
-    that this port is held against are float32 too.
+    The config is the artifact's, its compute dtype included; under a
+    bfloat16 config the bfloat16 leaves stay bfloat16. A caller that wants
+    the float32 codec of the same weights replaces `dtype` (the weights are
+    exact either way).
     """
     state = {}
     with np.load(path) as z:
         config = Config.from_json(bytes(z[NPZ_CONFIG_KEY]).decode("utf-8"))
+        keep_bf16 = config.dtype == "bfloat16"
         for name in z.files:  # one leaf at a time keeps the peak low
             if name.startswith(NPZ_LEAF_PREFIX):
-                key, a = convert_leaf(name[len(NPZ_LEAF_PREFIX):], z[name])
-                state[key] = torch.from_numpy(a)
-    return config.replace(dtype="float32"), state
+                key, a = convert_leaf(name[len(NPZ_LEAF_PREFIX):], z[name],
+                                      keep_bf16)
+                state[key] = a
+    return config, state
 
 
 def jax_params_from_model(model: nn.Module) -> Dict[str, np.ndarray]:
@@ -129,17 +149,22 @@ def jax_params_from_model(model: nn.Module) -> Dict[str, np.ndarray]:
     for name, module in model.named_modules():
         path = name.replace(".", "/")
         if isinstance(module, Conv):
-            w = module.weight.detach().cpu().numpy()
+            w = _numpy(module.weight)
             flat[f"{path}/Conv_0/kernel"] = w.transpose(2, 3, 1, 0)
-            flat[f"{path}/Conv_0/bias"] = module.bias.detach().cpu().numpy()
+            flat[f"{path}/Conv_0/bias"] = _numpy(module.bias)
         elif isinstance(module, ConvTranspose):
-            w = module.weight.detach().cpu().numpy()
+            w = _numpy(module.weight)
             flat[f"{path}/kernel"] = w.transpose(2, 3, 0, 1)[::-1, ::-1]
-            flat[f"{path}/bias"] = module.bias.detach().cpu().numpy()
+            flat[f"{path}/bias"] = _numpy(module.bias)
         elif isinstance(module, (Norm, HyperlatentDensity)):
             for leaf, p in module.named_parameters(recurse=False):
-                flat[f"{path}/{leaf}"] = p.detach().cpu().numpy()
+                flat[f"{path}/{leaf}"] = _numpy(p)
     return {k: np.ascontiguousarray(v, np.float32) for k, v in flat.items()}
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A parameter -> float32 numpy (a bfloat16 one widened exactly)."""
+    return t.detach().float().cpu().numpy()
 
 
 def disc_state_dict_from_jax(disc_params: Mapping, spectral: Mapping
@@ -152,11 +177,11 @@ def disc_state_dict_from_jax(disc_params: Mapping, spectral: Mapping
         parts = path.split("/")
         if parts[-1] == "kernel" and parts[-2] != "Conv_0":  # SNConv
             key = ".".join(parts[:-1] + ["weight"])
-            a = np.ascontiguousarray(
-                leaf_to_float32(value).transpose(3, 2, 0, 1))
+            a = torch.from_numpy(np.ascontiguousarray(
+                leaf_to_float32(value).transpose(3, 2, 0, 1)))
         else:
             key, a = convert_leaf(path, value)
-        out[key] = torch.from_numpy(a)
+        out[key] = a
     for path, value in flatten_tree(spectral).items():
         parts = path.split("/")
         if parts[0] == "discriminator":

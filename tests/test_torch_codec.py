@@ -73,7 +73,8 @@ def flagship():
     jax_codec = JaxCodec(config.replace(dtype="float32"), params)
     del params
     port_config, state = load_npz(ARTIFACT)
-    port = Codec(port_config, state, device="cpu")
+    # The artifact's config computes in bfloat16; both stacks run it fp32.
+    port = Codec(port_config.replace(dtype="float32"), state, device="cpu")
     return jax_codec, port
 
 

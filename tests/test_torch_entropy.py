@@ -5,6 +5,7 @@ flagship artifact's densities), rANS streams, the golden bitstream and the
 `.hfc` container must be byte-identical between the two packages.
 """
 
+import copy
 import hashlib
 import os
 
@@ -249,3 +250,26 @@ def test_scale_indices_match_jax_and_synth_stats_rule():
                              torch.from_numpy(t32[:-1]))
     np.testing.assert_array_equal(compute_scale_indices(scales, t32),
                                   bucket.numpy())
+
+
+def test_factorized_tables_built_once_per_density(monkeypatch):
+    """A second entropy model of an equal density takes the first one's
+    tables without searching; a density that differs in one parameter
+    searches again."""
+    torch.manual_seed(0)
+    density = HyperlatentDensity(8)
+    first = FactorizedEntropyModel(density)
+    first.build_tables()
+    real = host_math.factorized_tails
+    calls = []
+    monkeypatch.setattr(host_math, "factorized_tails",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    again = FactorizedEntropyModel(copy.deepcopy(density))
+    assert again.build_tables() is first.tables and calls == []
+    np.testing.assert_array_equal(again.medians, first.medians)
+    with torch.no_grad():
+        density.b_0[0, 0, 0] += 0.25
+    other = FactorizedEntropyModel(density)
+    other.build_tables()
+    assert calls == [1]
+    assert not np.array_equal(other.medians, first.medians)

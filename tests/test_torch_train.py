@@ -39,11 +39,10 @@ from hific_tpu.training import train_step as jax_train_step
 from hific_tpu_torch import runtime
 from hific_tpu_torch.cli import train as train_cli
 from hific_tpu_torch.config import Config, Schedule
+from hific_tpu_torch.kinks import KinkSides
 from hific_tpu_torch.models.hific import HiFiC, Intermediates
-from hific_tpu_torch.models.layers import Norm
 from hific_tpu_torch.models.lpips import LPIPS
 from hific_tpu_torch.ops import maths, quantize
-from hific_tpu_torch.ops.fused_norm import channel_norm_fused
 from hific_tpu_torch.training import checkpoints, losses, schedules
 from hific_tpu_torch.training.data import TrainDataset
 from hific_tpu_torch.training.train_step import (
@@ -552,52 +551,36 @@ def _jax_relu_outputs(cfg, params, x_u8):
 def _step_with_gradients(state, step_fn, x, grads, jax_relu):
     """One port step whose backward delivers `grads` (float64, by
     parameter name) to Adam in place of the port's own gradients. Returns
-    the port's own gradients, and the ReLU elements left out of them: where
-    the port's and JAX's ReLU outputs `jax_relu` take different sides of
-    the kink, the port's backward takes JAX's side. Each such element is a
-    (layer, count, largest |pre-activation| of either side there, KINK_REL
-    of the layer's largest) row."""
-    own, kinks, handles = {}, [], []
+    the port's own gradients, and the port's sides (`KinkSides`): where the
+    port's and JAX's ReLU outputs `jax_relu` take different sides of the
+    kink, the port takes JAX's side; `apart` lists each such layer."""
+    own, handles = {}, []
+    theirs = KinkSides()
+    for name, y in jax_relu.items():
+        theirs.pre[name], theirs.side[name] = y, y > 0
 
     def deliver(g, name):
         own[name] = g.detach().double().clone()
         return grads[name].to(g.dtype)
 
-    def kink_side(module, inputs, out, name):
-        want = jax_relu[name]
-        flip = (out > 0) != (want > 0)
-        if not bool(flip.any()):
-            return None
-        a = channel_norm_fused(inputs[0], module.gamma, module.beta)
-        near = torch.maximum(a.detach().abs(), want.abs())[flip]
-        kinks.append((name, int(flip.sum()), float(near.max()),
-                      KINK_REL * float(a.detach().abs().max())))
-        passes = torch.where(flip & (want > 0), a - a.detach(),
-                             torch.zeros_like(a))
-        return torch.where(flip, out.detach() + passes, out)
-
     for name, p in state.model.named_parameters():
         handles.append(p.register_hook(lambda g, n=name: deliver(g, n)))
-    for name, m in state.model.named_modules():
-        if isinstance(m, Norm) and m.activation == "relu":
-            handles.append(m.register_forward_hook(
-                lambda m, i, o, n=name: kink_side(m, i, o, n)))
     try:
-        step_fn(state, x)
+        with KinkSides().hooked(state.model, theirs) as sides:
+            step_fn(state, x)
     finally:
         for h in handles:
             h.remove()
-    return own, kinks
+    return own, sides
 
 
-def _assert_own_gradients(own, kinks, jax_before, jax_after):
+def _assert_own_gradients(own, sides, jax_before, jax_after):
     """The port's own gradients against those of JAX's step (recovered from
     its mu): each leaf within GRAD_REL of its largest |g|, plus the rounding
-    of the recovery, with the elements of `kinks` left out; each of those
-    lies within KINK_REL of the kink on both sides. Returns the largest
-    error as a share of GRAD_REL."""
-    for name, count, near, limit in kinks:
-        assert near <= limit, (name, count, near, limit)
+    of the recovery, with the ReLU elements the two stacks decided apart
+    taking JAX's side; each of those lies within KINK_REL of the kink on
+    both sides. Returns the largest error as a share of GRAD_REL."""
+    sides.check(KINK_REL)
     before = _jax_adam_state(jax_before.opt_state)
     after = _jax_adam_state(jax_after.opt_state)
     want = _step_gradients(before, after)
@@ -633,7 +616,7 @@ def test_two_train_steps_match_jax(tiny, shared_noise):
     The port's own step-2 gradients, from both states, are held to
     GRAD_REL of each leaf's largest |g| against those JAX's step took,
     with the ReLU elements where the two stacks take different sides of
-    the kink left out (the port's backward takes JAX's side there), each
+    the kink given JAX's side in the port's step (`KinkSides`), each
     found from the two stacks' activations and each within KINK_REL of the
     kink on both sides. Nothing in the limits is fitted to a host.
 
@@ -678,20 +661,20 @@ def test_two_train_steps_match_jax(tiny, shared_noise):
     grad_shares, left_out = [], []
     for state, before, after in ((carried, s1, s2),
                                  (chained, s1_port, s2_port)):
-        own, kinks = _step_with_gradients(
+        own, sides = _step_with_gradients(
             state, step_fn, x,
             _step_gradients(_jax_adam_state(before.opt_state),
                             _jax_adam_state(after.opt_state)),
             _jax_relu_outputs(cfg, before.params, x))
         assert state.step == 2
         worst.append(_assert_step_within(state, before, after, lr(1), 0.0))
-        grad_shares.append(_assert_own_gradients(own, kinks, before, after))
-        left_out.append(kinks)
+        grad_shares.append(_assert_own_gradients(own, sides, before, after))
+        left_out.append(sides.apart)
     print("largest share of the rounding allowance, per check:", worst)
     print("step-2 gradients, largest error as a share of GRAD_REL "
           "(carried, chained):", grad_shares)
-    print("ReLU elements left out (layer, count, largest |pre-activation|, "
-          "limit):", left_out)
+    print("ReLU elements given JAX's side (layer: count, nearest the kink, "
+          "the layer's largest |pre-activation|):", left_out)
 
 
 def test_eval_step_uses_rounded_hyperlatents(tiny, shared_noise):
