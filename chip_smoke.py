@@ -20,17 +20,24 @@ those paths against its plain PyTorch version:
    ChannelNorm forward and backward kernels, and for `csrc/rans_device.cu`,
    which holds the rANS encode and decode kernels; g++ for the host rANS
    coder);
-3. runs the ChannelNorm forward kernel at each of the round trip's 29
-   (M, C, act) shapes against its plain version (fp32 within 1e-5; bf16
-   within one ulp plus 1e-5), with its time, the plain version's time and
-   the memory bound, in each dtype;
+3. runs the ChannelNorm forward kernel at each distinct (M, C, act) shape
+   of three sets: the 768x512 round trip's 29 and a batch-8, 256x256
+   training step's 29 in fp32 and in bf16, and one 1024x1024 image's 29
+   at bench.py's operating point in bf16 (norm_in fp32); against its plain
+   version (fp32 within 1e-5; bf16 within one ulp plus 1e-5), two calls
+   with the same bits, with its time, the plain version's, the library
+   call's (`F.layer_norm` on the channels-last view with the weight and
+   eps rescaled to the unbiased variance, without the ReLU) and the
+   memory bound, summed per set; and the time of an empty kernel, what a
+   launch alone costs;
 4. runs the ChannelNorm backward kernels (the row kernel and the column
    sum of its per-block partial sums) at each of the 29 norm shapes of a
    batch-8, 256x256 flagship training step against their plain version,
    dx, dgamma and dbeta, in fp32 (within 1e-5 of the row's or column's
    scale) and bf16 (dx within one bf16 ulp more), twice with the same bits,
-   with the same timings in both dtypes (and the forward kernel's at those
-   shapes), each fp32 kernel also timed alone;
+   with the same timings and the library call's
+   (`native_layer_norm_backward`, without the ReLU mask) in both dtypes,
+   each fp32 kernel also timed alone;
 5. loads the flagship weights (seeded random weights of the same
    configuration where the artifact is absent) and builds the codec and
    its tables; then runs rans_encode and rans_decode against their plain
@@ -208,80 +215,173 @@ def bf16_ulp(r: torch.Tensor) -> torch.Tensor:
     return torch.exp2(torch.floor(torch.log2(a)) - 7.0)
 
 
-def check_channel_norm(shapes, gen):
-    """Kernel vs plain version at every shape; returns the summary."""
+def bench_point_norm_shapes(config):
+    """(M, C, act, dtype) of every ChannelNorm of one 1024x1024 image at
+    bench.py's operating point in bf16, in call order: the generator's
+    norm_in (the sixth) normalizes the fp32 decoded latents, the rest run
+    in bf16."""
+    return [(m, c, act, torch.float32 if i == 5 else torch.bfloat16)
+            for i, (m, c, act) in enumerate(
+                main_path_norm_shapes(config, 1024, 1024))]
+
+
+def layer_norm_args(x, gamma, beta, eps: float = 1e-3,
+                    weight_dtype=torch.float32):
+    """Arguments of the one library call that computes the forward kernel's
+    function without its ReLU: `F.layer_norm` over the channels of the
+    channels-last view (a view, no copy), with gamma scaled by sqrt((C-1)/C)
+    and eps by (C-1)/C, since var_u + eps = C/(C-1) * (var_b + eps (C-1)/C)
+    for the unbiased var_u this norm takes and the biased var_b that
+    layer_norm takes. A yardstick of speed only: the port never calls it."""
+    c = x.shape[1]
+    k = (c - 1) / c
+    return (x.permute(0, 2, 3, 1), (c,),
+            (gamma * math.sqrt(k)).to(weight_dtype),
+            beta.to(weight_dtype), eps * k)
+
+
+def layer_norm_backward_args(x, gamma, beta, g, eps: float = 1e-3,
+                             weight_dtype=torch.float32):
+    """Arguments of `torch.ops.aten.native_layer_norm_backward` for the same
+    function (no ReLU), its mean and rstd computed here, outside any timing.
+    It returns dx (channels-last view), dw and db: dgamma = dw * sqrt((C-1)
+    / C), dbeta = db."""
+    xv, shape, w, b, eps_ln = layer_norm_args(x, gamma, beta, eps,
+                                              weight_dtype)
+    _, mean, rstd = torch.native_layer_norm(xv, shape, w, b, eps_ln)
+    return (g.permute(0, 2, 3, 1), xv, shape, mean, rstd, w, b,
+            [True, True, True])
+
+
+def library_weight_dtype(dtype):
+    """float32 where the card's layer_norm and its backward take float32
+    weights with input of `dtype`, else `dtype` (the weights cast)."""
+    x = torch.ones((1, 4, 1, 2), device="cuda", dtype=dtype).contiguous(
+        memory_format=torch.channels_last)
+    gamma = torch.ones(4, device="cuda")
+    try:
+        torch.nn.functional.layer_norm(*layer_norm_args(x, gamma, gamma))
+        torch.ops.aten.native_layer_norm_backward(
+            *layer_norm_backward_args(x, gamma, gamma, x))
+        torch.cuda.synchronize()
+        return torch.float32
+    except RuntimeError as exc:
+        log(f"layer_norm refuses {dtype} input with float32 weights "
+            f"({str(exc).splitlines()[0]}); the yardstick casts them")
+        return dtype
+
+
+def check_forward_shape(m, c, act, dtype, gen, weights):
+    """The forward kernel at one shape against its plain version (fp32
+    within 1e-5; bf16 within one ulp plus 1e-5), two calls with the same
+    bits, and its time beside the plain version's, the library call's and
+    the bytes bound."""
     from hific_tpu_torch.ops import fused_norm
 
-    rows, timed = [], {}
-    max_err = 0.0
-    for m, c, act in shapes:
-        x = torch.randn((1, m, 1, c), generator=gen).permute(0, 3, 1, 2)
-        x = x.cuda().contiguous(memory_format=torch.channels_last)
-        gamma = (1.0 + 0.1 * torch.randn(c, generator=gen)).cuda()
-        beta = (0.1 * torch.randn(c, generator=gen)).cuda()
-        got = fused_norm.channel_norm_fused(x, gamma, beta, act=act)
-        want = fused_norm.channel_norm_fused_reference(x, gamma, beta, act=act)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
+    x = torch.randn((1, m, 1, c), generator=gen, device="cuda")
+    x = x.permute(0, 3, 1, 2).to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    gamma = 1.0 + 0.1 * torch.randn(c, generator=gen, device="cuda")
+    beta = 0.1 * torch.randn(c, generator=gen, device="cuda")
+    got = fused_norm.channel_norm_fused(x, gamma, beta, act=act)
+    again = fused_norm.channel_norm_fused(x, gamma, beta, act=act)
+    want = fused_norm.channel_norm_fused_reference(x, gamma, beta, act=act)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"channel_norm M={m} C={c} {dtype}: two calls "
+                             f"differ")
+    diff = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        err, beyond, n_beyond = float(diff.max()), 0.0, 0
         if not err <= FP32_TOL:
             raise AssertionError(f"channel_norm M={m} C={c} act={act}: max "
                                  f"abs err {err} > {FP32_TOL}")
-        max_err = max(max_err, err)
-        if (m, c, act) not in timed:
-            k_ms = cuda_time_ms(
-                lambda: fused_norm.channel_norm_fused(x, gamma, beta, act=act))
-            p_ms = cuda_time_ms(lambda: fused_norm.channel_norm_fused_reference(
-                x, gamma, beta, act=act))
-            bound_ms = (2 * m * c * 4 + 2 * c * 4) / HBM_BYTES_PER_S * 1e3
-            timed[(m, c, act)] = (k_ms, p_ms, bound_ms)
-            log(f"channel_norm M={m:6d} C={c:3d} {act:4s}: err {err:.2e} "
-                f"kernel {k_ms:.4f} ms plain {p_ms:.4f} ms bound "
-                f"{bound_ms:.4f} ms ({bound_ms / k_ms:.0%} of HBM roofline)")
-        rows.append(timed[(m, c, act)])
-    # bf16 at every shape: the bf16 codec and training paths.
-    bf16_rows, bf16_timed, beyond_max = [], {}, 0.0
-    for m, c, act in shapes:
-        x = torch.randn((1, m, 1, c), generator=gen).permute(0, 3, 1, 2)
-        x = x.cuda().to(torch.bfloat16).contiguous(
-            memory_format=torch.channels_last)
-        gamma = (1.0 + 0.1 * torch.randn(c, generator=gen)).cuda()
-        beta = (0.1 * torch.randn(c, generator=gen)).cuda()
-        got = fused_norm.channel_norm_fused(x, gamma, beta, act=act)
-        want = fused_norm.channel_norm_fused_reference(x, gamma, beta, act=act)
-        diff = (got.float() - want.float()).abs()
+    else:
+        # One bf16 ulp of the output, plus the fp32 limit: where gamma *
+        # x_hat and beta nearly cancel, the two fp32 computations differ by
+        # a few fp32 ulps of the terms, which is more than a bf16 ulp of
+        # the small result.
         ulp = bf16_ulp(want)
-        # One bf16 ulp of the output, plus the fp32 limit: where gamma * x_hat
-        # and beta nearly cancel, the two fp32 computations differ by a few
-        # fp32 ulps of the terms, which is more than a bf16 ulp of the small
-        # result.
         if not bool((diff <= ulp + FP32_TOL).all()):
             raise AssertionError(f"bf16 channel_norm M={m} C={c}: off by "
-                                 f"{float((diff - ulp).max())} beyond one ulp")
+                                 f"{float((diff - ulp).max())} beyond one "
+                                 f"ulp")
+        err = float(diff.max())
         beyond = float((diff - ulp).clamp_min(0).max())
-        beyond_max = max(beyond_max, beyond)
-        if (m, c, act) not in bf16_timed:
-            k_ms = cuda_time_ms(
-                lambda: fused_norm.channel_norm_fused(x, gamma, beta, act=act))
-            p_ms = cuda_time_ms(lambda: fused_norm.channel_norm_fused_reference(
-                x, gamma, beta, act=act))
-            bound_ms = (2 * m * c * 2 + 2 * c * 4) / HBM_BYTES_PER_S * 1e3
-            bf16_timed[(m, c, act)] = (k_ms, p_ms, bound_ms)
-            log(f"channel_norm bf16 M={m:6d} C={c:3d} {act:4s}: "
-                f"{int((diff > ulp).sum())} of {diff.numel()} values beyond "
-                f"one ulp, by at most {beyond:.2e}; kernel {k_ms:.4f} ms "
-                f"plain {p_ms:.4f} ms bound {bound_ms:.4f} ms "
-                f"({bound_ms / k_ms:.0%} of HBM roofline)")
-        bf16_rows.append(bf16_timed[(m, c, act)])
-    return {
-        "ms": sum(r[0] for r in rows),
-        "plain_ms": sum(r[1] for r in rows),
-        "bound_ms": sum(r[2] for r in rows),
-        "max_abs_err": max_err,
-        "bf16": {"ms": sum(r[0] for r in bf16_rows),
-                 "plain_ms": sum(r[1] for r in bf16_rows),
-                 "bound_ms": sum(r[2] for r in bf16_rows),
-                 "max_beyond_one_ulp": beyond_max},
+        n_beyond = int((diff > ulp).sum())
+    args = layer_norm_args(x, gamma, beta, weight_dtype=weights[dtype])
+    row = {
+        "m": m, "c": c, "act": act, "dtype": str(dtype).split(".")[-1],
+        "plan": list(fused_norm.forward_plan(
+            m, c, x.element_size(), fused_norm._sm_count(x.device.index))),
+        "max_abs_err": err, "max_beyond_one_ulp": beyond,
+        "ms": cuda_time_ms(lambda: fused_norm.channel_norm_fused(
+            x, gamma, beta, act=act)),
+        "plain_ms": cuda_time_ms(
+            lambda: fused_norm.channel_norm_fused_reference(
+                x, gamma, beta, act=act)),
+        "library_ms": cuda_time_ms(
+            lambda: torch.nn.functional.layer_norm(*args)),
+        "bound_ms": (2 * m * c * x.element_size() + 2 * c * 4)
+        / HBM_BYTES_PER_S * 1e3,
     }
+    log(f"channel_norm {row['dtype']:8s} M={m:7d} C={c:3d} {act:4s} plan "
+        f"{row['plan']}: err {err:.2e} ({n_beyond} values beyond one ulp); "
+        f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, "
+        f"layer_norm {row['library_ms']:.4f}, bound {row['bound_ms']:.4f} "
+        f"({row['bound_ms'] / row['ms']:.0%} of the HBM roofline)")
+    return row
+
+
+FWD_SUMS = ("ms", "plain_ms", "library_ms", "bound_ms")
+
+
+def check_channel_norm(sets, weights):
+    """The forward kernel at every shape of each set (name, dtype label,
+    [(M, C, act, dtype)]), each distinct shape checked and timed once.
+    Returns the sums per set and label (each shape as often as the set
+    launches it) and the distinct shapes' rows."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows, sums = {}, {}
+    for name, label, shapes in sets:
+        total = dict.fromkeys(FWD_SUMS, 0.0)
+        total.update(max_abs_err=0.0, max_beyond_one_ulp=0.0)
+        for shape in shapes:
+            if shape not in rows:
+                rows[shape] = check_forward_shape(*shape, gen, weights)
+                rows[shape]["launches_per_set"] = {}
+            row = rows[shape]
+            key = f"{name} {label}"
+            row["launches_per_set"][key] = (
+                row["launches_per_set"].get(key, 0) + 1)
+            for k in FWD_SUMS:
+                total[k] += row[k]
+            for k in ("max_abs_err", "max_beyond_one_ulp"):
+                total[k] = max(total[k], row[k])
+        sums.setdefault(name, {})[label] = total
+        log(f"channel_norm {name} {label}: {len(shapes)} launches; kernel "
+            f"{total['ms']:.3f} ms, plain {total['plain_ms']:.3f}, "
+            f"layer_norm {total['library_ms']:.3f}, bound "
+            f"{total['bound_ms']:.3f} ({total['bound_ms'] / total['ms']:.0%} "
+            f"of the HBM roofline)")
+    return sums, list(rows.values())
+
+
+def empty_kernel_ms():
+    """What a launch alone costs: an empty kernel of one warp and one of the
+    one-wave grid (264 blocks of 256 threads), timed as the kernels are."""
+    from hific_tpu_torch.ops import fused_norm
+
+    lib = fused_norm.LIBRARY.load()
+
+    def launch(blocks, threads):
+        err = lib.hific_empty_kernel(
+            blocks, threads, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"empty kernel: CUDA error {err}")
+
+    return {f"{b}x{t}": cuda_time_ms(lambda: launch(b, t))
+            for b, t in ((1, 32), (264, 256))}
 
 
 def train_step_norm_shapes(config, batch: int, crop: int):
@@ -364,11 +464,11 @@ def _backward_error(x, g, gamma, beta, act, got):
             float(near.float().mean()))
 
 
-def check_channel_norm_backward(shapes, gen):
-    """Backward kernel vs plain version at every shape (fp32 and bf16);
-    timings at each distinct fp32 shape, of the forward kernel too (after a
-    check against its plain version), since a training step launches both.
-    Returns the summary."""
+def check_channel_norm_backward(shapes, gen, weights):
+    """Backward kernel vs plain version at every shape (fp32 and bf16),
+    with the kernel's, the plain version's and the library call's
+    (`native_layer_norm_backward`, no ReLU mask) times at each distinct
+    shape. Returns the summary."""
     from hific_tpu_torch.ops import fused_norm
 
     timed_shapes, bf16_shapes, max_err, worst = {}, {}, 0.0, (0.0, 0.0)
@@ -393,94 +493,106 @@ def check_channel_norm_backward(shapes, gen):
                     f"{sums_rel:.2e} of their column scale (limit "
                     f"{FP32_TOL}); {kink_share:.1e} of the inputs at the "
                     f"ReLU's kink (limit 1e-4)")
+            k_ms = cuda_time_ms(lambda: fused_norm.channel_norm_backward(
+                x, gamma, beta, g, act=act))
+            p_ms = cuda_time_ms(
+                lambda: fused_norm.channel_norm_backward_reference(
+                    x, gamma, beta, g, act=act))
+            args = layer_norm_backward_args(x, gamma, beta, g,
+                                            weight_dtype=weights[dtype])
+            l_ms = cuda_time_ms(
+                lambda: torch.ops.aten.native_layer_norm_backward(*args))
+            bound_ms = ((3 * m * c * x.element_size() + 4 * c * 4)
+                        / HBM_BYTES_PER_S * 1e3)
             if dtype == torch.float32:
                 max_err = max(max_err, abs_err)
                 worst = (max(worst[0], dx_rel), max(worst[1], sums_rel))
-                k_ms = cuda_time_ms(lambda: fused_norm.channel_norm_backward(
-                    x, gamma, beta, g, act=act))
                 # The two kernels of the backward, each alone.
                 dx_buf = torch.empty_like(x)
                 row_ms, col_ms = (cuda_time_ms(
                     lambda: fused_norm.BACKWARD_KERNEL.launch(
                         x, g, gamma, beta, dx_buf, 1e-3, act == "relu",
                         stages=stages)) for stages in (1, 2))
-                p_ms = cuda_time_ms(
-                    lambda: fused_norm.channel_norm_backward_reference(
-                        x, gamma, beta, g, act=act))
-                bound_ms = ((3 * m * c * 4 + 4 * c * 4) / HBM_BYTES_PER_S
-                            * 1e3)
-                y = fused_norm.channel_norm_fused(x, gamma, beta, act=act)
-                y_err = float((y - fused_norm.channel_norm_fused_reference(
-                    x, gamma, beta, act=act)).abs().max())
-                if not y_err <= FP32_TOL:
-                    raise AssertionError(f"channel_norm M={m} C={c} {act}: "
-                                         f"max abs err {y_err}")
-                f_ms = cuda_time_ms(lambda: fused_norm.channel_norm_fused(
-                    x, gamma, beta, act=act))
-                fp_ms = cuda_time_ms(
-                    lambda: fused_norm.channel_norm_fused_reference(
-                        x, gamma, beta, act=act))
-                f_bound = (2 * m * c * 4 + 2 * c * 4) / HBM_BYTES_PER_S * 1e3
-                timed_shapes[(m, c, act)] = (k_ms, p_ms, bound_ms, f_ms,
-                                             fp_ms, f_bound, row_ms, col_ms)
+                timed_shapes[(m, c, act)] = (k_ms, p_ms, bound_ms, l_ms,
+                                             row_ms, col_ms)
                 log(f"backward M={m:6d} C={c:3d} {act:4s}: dx err "
                     f"{dx_rel:.1e} of row scale, sums {sums_rel:.1e}, "
                     f"{kink_rows} rows at the kink")
                 print(f"    backward M={m} C={c} {act}: kernel {k_ms:.4f} ms "
                       f"(row kernel {row_ms:.4f}, column sum {col_ms:.4f}), "
-                      f"plain {p_ms:.4f} ms, bound {bound_ms:.4f} ms, "
-                      f"kernel/bound {k_ms / bound_ms:.2f}; forward kernel "
-                      f"{f_ms:.4f} ms, plain {fp_ms:.4f} ms, bound "
-                      f"{f_bound:.4f} ms", flush=True)
+                      f"plain {p_ms:.4f} ms, native_layer_norm_backward "
+                      f"{l_ms:.4f} ms, bound {bound_ms:.4f} ms, "
+                      f"kernel/bound {k_ms / bound_ms:.2f}", flush=True)
             else:
-                k_ms = cuda_time_ms(lambda: fused_norm.channel_norm_backward(
-                    x, gamma, beta, g, act=act))
-                p_ms = cuda_time_ms(
-                    lambda: fused_norm.channel_norm_backward_reference(
-                        x, gamma, beta, g, act=act))
-                bound_ms = ((3 * m * c * 2 + 4 * c * 4) / HBM_BYTES_PER_S
-                            * 1e3)
-                y = fused_norm.channel_norm_fused(x, gamma, beta, act=act)
-                want = fused_norm.channel_norm_fused_reference(
-                    x, gamma, beta, act=act).float()
-                if not bool(((y.float() - want).abs()
-                             <= bf16_ulp(want) + FP32_TOL).all()):
-                    raise AssertionError(f"bf16 channel_norm M={m} C={c} "
-                                         f"{act}: beyond one ulp")
-                f_ms = cuda_time_ms(lambda: fused_norm.channel_norm_fused(
-                    x, gamma, beta, act=act))
-                f_bound = (2 * m * c * 2 + 2 * c * 4) / HBM_BYTES_PER_S * 1e3
-                bf16_shapes[(m, c, act)] = (k_ms, p_ms, bound_ms, f_ms,
-                                            f_bound)
+                bf16_shapes[(m, c, act)] = (k_ms, p_ms, bound_ms, l_ms)
                 log(f"backward bf16 M={m:6d} C={c:3d} {act:4s}: dx beyond "
                     f"one ulp by {dx_rel:.1e} of row scale at most ({beyond} "
                     f"values beyond one ulp), sums {sums_rel:.1e}, "
                     f"{kink_rows} rows at the kink; kernel {k_ms:.4f} ms, "
-                    f"plain {p_ms:.4f} ms, bound {bound_ms:.4f} ms; forward "
-                    f"kernel {f_ms:.4f} ms, bound {f_bound:.4f} ms")
+                    f"plain {p_ms:.4f} ms, native_layer_norm_backward "
+                    f"{l_ms:.4f} ms, bound {bound_ms:.4f} ms")
     rows = [timed_shapes[s] for s in shapes]
     bf16_rows = [bf16_shapes[s] for s in shapes]
     return {
         "bf16": {"ms": sum(r[0] for r in bf16_rows),
                  "plain_ms": sum(r[1] for r in bf16_rows),
                  "bound_ms": sum(r[2] for r in bf16_rows),
-                 "fwd_ms": sum(r[3] for r in bf16_rows),
-                 "fwd_bound_ms": sum(r[4] for r in bf16_rows)},
+                 "library_ms": sum(r[3] for r in bf16_rows)},
         "ms": sum(r[0] for r in rows),
         "plain_ms": sum(r[1] for r in rows),
         "bound_ms": sum(r[2] for r in rows),
-        "fwd_ms": sum(r[3] for r in rows),
-        "fwd_plain_ms": sum(r[4] for r in rows),
-        "fwd_bound_ms": sum(r[5] for r in rows),
+        "library_ms": sum(r[3] for r in rows),
         "max_abs_err": max_err,
         "worst": worst,
         "per_shape": [
             {"m": m, "c": c, "act": act,
              "launches_per_step": sum(1 for s in shapes if s == (m, c, act)),
-             "ms": r[0], "row_kernel_ms": r[6], "column_sum_ms": r[7],
-             "plain_ms": r[1], "bound_ms": r[2]}
+             "ms": r[0], "row_kernel_ms": r[4], "column_sum_ms": r[5],
+             "plain_ms": r[1], "library_ms": r[3], "bound_ms": r[2],
+             "bf16": dict(zip(("ms", "plain_ms", "bound_ms", "library_ms"),
+                              bf16_shapes[(m, c, act)]))}
             for (m, c, act), r in timed_shapes.items()],
     }
+
+
+def check_norm_kernels(config, card: str) -> dict:
+    """Phase 3: the forward kernel against its plain version, and beside
+    the library call, at the shapes of three paths: the 768x512 round trip
+    and the batch-8 training step in each dtype, and one 1024x1024 image at
+    bench.py's operating point in bf16. Phase 4: the backward kernel at the
+    training step's shapes."""
+    shapes = main_path_norm_shapes(config, IMAGE_H, IMAGE_W)
+    train_shapes = train_step_norm_shapes(config, TRAIN_BATCH, TRAIN_CROP)
+    t0 = time.perf_counter()
+    weights = {dt: library_weight_dtype(dt)
+               for dt in (torch.float32, torch.bfloat16)}
+    fwd_sets = [(name, str(dt).split(".")[-1],
+                 [(m, c, act, dt) for m, c, act in set_shapes])
+                for name, set_shapes in (("round_trip_768x512", shapes),
+                                         ("train_step_b8_256", train_shapes))
+                for dt in (torch.float32, torch.bfloat16)]
+    fwd_sets.append(("bench_1024x1024", "bfloat16",
+                     bench_point_norm_shapes(config)))
+    fwd_sums, fwd_rows = check_channel_norm(fwd_sets, weights)
+    empty_ms = empty_kernel_ms()
+    log(f"channel_norm: {len(fwd_rows)} distinct shapes in "
+        f"{time.perf_counter() - t0:.1f} s; empty kernel {empty_ms} ms; "
+        f"layer_norm weights {weights[torch.bfloat16]} for bf16 input "
+        f"({card})")
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED)
+    bwd = check_channel_norm_backward(train_shapes, gen, weights)
+    log(f"channel_norm backward: {len(train_shapes)} shapes per step, worst "
+        f"dx err {bwd['worst'][0]:.2e} of row scale, dgamma/dbeta "
+        f"{bwd['worst'][1]:.2e} of column scale; per step kernel "
+        f"{bwd['ms']:.3f} ms, plain {bwd['plain_ms']:.3f} ms, "
+        f"native_layer_norm_backward {bwd['library_ms']:.3f} ms, bound "
+        f"{bwd['bound_ms']:.3f} ms; {time.perf_counter() - t0:.1f} s "
+        f"({card})")
+    return {"forward": fwd_sums, "forward_rows": fwd_rows,
+            "empty_kernel_ms": empty_ms, "weights": weights,
+            "backward": bwd}
 
 
 def timed(fn):
@@ -1425,16 +1537,17 @@ def batch_path(codec, card: str):
     device_pass()
     resident = float(np.median([timed(device_pass)[1] for _ in range(7)]))
     wall_ms, rows, busy_ms = profiled(device_pass)
-    rans_ms = {k: sum(e.self_device_time_total for e in rows if k in e.key)
-               / 1e3 for k in ("rans_encode", "rans_decode")}
+    kernel_ms = {k: sum(e.self_device_time_total for e in rows if k in e.key)
+                 / 1e3 for k in ("rans_encode", "rans_decode", "channel_norm")}
     for e in rows:
-        if "rans_" in e.key:
+        if "rans_" in e.key or "channel_norm" in e.key:
             print(f"    {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} "
                   f"{e.key[:90]}")
     log(f"profiled device-resident pass (4 images): wall {wall_ms:.1f} ms, "
         f"device busy {busy_ms:.1f} ms ({busy_ms / wall_ms:.0%}); "
-        f"rans_encode {rans_ms['rans_encode']:.2f} ms, rans_decode "
-        f"{rans_ms['rans_decode']:.2f} ms; top kernels by device time:")
+        f"rans_encode {kernel_ms['rans_encode']:.2f} ms, rans_decode "
+        f"{kernel_ms['rans_decode']:.2f} ms, ChannelNorm forward "
+        f"{kernel_ms['channel_norm']:.2f} ms; top kernels by device time:")
     print_top(rows, 8)
     summary = {
         "bpp": float(np.mean(bpps)),
@@ -1444,8 +1557,9 @@ def batch_path(codec, card: str):
         "pipelined_ms_per_image": pipelined / 4,
         "pipelined_mp_s": 4 * mp / (pipelined / 1e3),
         "device_resident_mp_s": 4 * mp / (resident / 1e3),
-        "profiled_rans_encode_ms": rans_ms["rans_encode"],
-        "profiled_rans_decode_ms": rans_ms["rans_decode"],
+        "profiled_rans_encode_ms": kernel_ms["rans_encode"],
+        "profiled_rans_decode_ms": kernel_ms["rans_decode"],
+        "profiled_channel_norm_ms": kernel_ms["channel_norm"],
     }
     log(f"batch path, 1024x1024 at {summary['bpp']:.4f} bpp: serial "
         f"compress_file {enc:.1f} + decompress_file {dec:.1f} ms per image "
@@ -2309,9 +2423,10 @@ def read_trace(directory: str) -> dict:
     kernels = [e for e in events if e.get("cat") == "kernel"]
     norms = {}
     for e in kernels:
-        for kind, key in (("forward", "channel_norm_kernel"),
-                          ("backward", "channel_norm_bwd_kernel")):
-            if key in e["name"]:
+        for kind, keys in (("forward", ("channel_norm_kernel",
+                                        "channel_norm_rows_kernel")),
+                           ("backward", ("channel_norm_bwd_kernel",))):
+            if any(key in e["name"] for key in keys):
                 dtype = "bfloat16" if "bfloat16" in e["name"] else "float32"
                 norms[(kind, dtype)] = norms.get((kind, dtype), 0) + 1
     htod = [e for e in events if e.get("cat") == "gpu_memcpy"
@@ -2557,27 +2672,14 @@ def main() -> int:
     log(f"built rans.cc in {rans.seconds:.1f} s (g++); builds took "
         f"{time.perf_counter() - t0:.1f} s")
 
-    # Phase 3: the kernel against its plain version at the path's shapes.
+    # Phases 3-4: the norm kernels against their plain versions.
     config, state, source = load_weights(args.weights, SEED)
     shapes = main_path_norm_shapes(config, IMAGE_H, IMAGE_W)
-    gen = torch.Generator().manual_seed(SEED)
-    summary = check_channel_norm(shapes, gen)
-    log(f"channel_norm: {len(shapes)} shapes, max abs err "
-        f"{summary['max_abs_err']:.2e}; per round trip kernel "
-        f"{summary['ms']:.3f} ms, plain {summary['plain_ms']:.3f} ms, bound "
-        f"{summary['bound_ms']:.3f} ms ({card})")
-
-    # Phase 4: the backward kernel at a flagship training step's shapes.
     train_shapes = train_step_norm_shapes(config, TRAIN_BATCH, TRAIN_CROP)
-    bwd_summary = check_channel_norm_backward(train_shapes, gen)
-    log(f"channel_norm backward: {len(train_shapes)} shapes per step, worst "
-        f"dx err {bwd_summary['worst'][0]:.2e} of row scale, dgamma/dbeta "
-        f"{bwd_summary['worst'][1]:.2e} of column scale; per step kernel "
-        f"{bwd_summary['ms']:.3f} ms, plain {bwd_summary['plain_ms']:.3f} "
-        f"ms, bound {bwd_summary['bound_ms']:.3f} ms; forward per step "
-        f"kernel {bwd_summary['fwd_ms']:.3f} ms, plain "
-        f"{bwd_summary['fwd_plain_ms']:.3f} ms, bound "
-        f"{bwd_summary['fwd_bound_ms']:.3f} ms ({card})")
+    norm = check_norm_kernels(config, card)
+    rt = norm["forward"]["round_trip_768x512"]
+    step = norm["forward"]["train_step_b8_256"]
+    bwd_summary = norm["backward"]
 
     # Phase 5: weights, codec, tables.
     log(f"weights: {source}")
@@ -2765,18 +2867,29 @@ def main() -> int:
                    bf16_codec["entry_norm_launches_by_dtype"],
                    "bf16_train_steps": {"bfloat16": bf16_launches[0]},
                    "other_paths": "float32"},
-        "bf16": {**summary["bf16"],
-                 "train_step_ms": bwd_summary["bf16"]["fwd_ms"],
-                 "train_step_bound_ms": bwd_summary["bf16"]["fwd_bound_ms"]},
-        "max_abs_err": summary["max_abs_err"],
-        "ms": summary["ms"],
-        "plain_ms": summary["plain_ms"],
-        "bound_ms": summary["bound_ms"],
+        "bf16": {**rt["bfloat16"],
+                 "train_step_ms": step["bfloat16"]["ms"],
+                 "train_step_library_ms": step["bfloat16"]["library_ms"],
+                 "train_step_bound_ms": step["bfloat16"]["bound_ms"]},
+        "max_abs_err": rt["float32"]["max_abs_err"],
+        "ms": rt["float32"]["ms"],
+        "plain_ms": rt["float32"]["plain_ms"],
+        "bound_ms": rt["float32"]["bound_ms"],
         "bound_by": "bytes",
-        "library_ms": None,
-        "train_step_ms": bwd_summary["fwd_ms"],
-        "train_step_plain_ms": bwd_summary["fwd_plain_ms"],
-        "train_step_bound_ms": bwd_summary["fwd_bound_ms"],
+        "library_ms": rt["float32"]["library_ms"],
+        "library_call": "F.layer_norm(x.permute(0, 2, 3, 1), (C,), gamma * "
+                        "sqrt((C-1)/C), beta, eps * (C-1)/C), without the "
+                        "ReLU",
+        "library_weight_dtype": {
+            str(k).split(".")[-1]: str(v).split(".")[-1]
+            for k, v in norm["weights"].items()},
+        "train_step_ms": step["float32"]["ms"],
+        "train_step_plain_ms": step["float32"]["plain_ms"],
+        "train_step_library_ms": step["float32"]["library_ms"],
+        "train_step_bound_ms": step["float32"]["bound_ms"],
+        "sets": norm["forward"],
+        "empty_kernel_ms": norm["empty_kernel_ms"],
+        "per_shape": norm["forward_rows"],
     }, {
         "name": "channel_norm_backward",
         "route": "cuda",
@@ -2788,14 +2901,16 @@ def main() -> int:
                              "bf16_train_steps": bf16_launches[1]},
         "dtypes": {"bf16_train_steps": {"bfloat16": bf16_launches[1]},
                    "other_paths": "float32"},
-        "bf16": {k: bwd_summary["bf16"][k]
-                 for k in ("ms", "plain_ms", "bound_ms")},
+        "bf16": bwd_summary["bf16"],
         "max_abs_err": bwd_summary["max_abs_err"],
         "ms": bwd_summary["ms"],
         "plain_ms": bwd_summary["plain_ms"],
         "bound_ms": bwd_summary["bound_ms"],
         "bound_by": "bytes",
-        "library_ms": None,
+        "library_ms": bwd_summary["library_ms"],
+        "library_call": "torch.ops.aten.native_layer_norm_backward with the "
+                        "forward's rescaled weight and eps, without the ReLU "
+                        "mask",
         "per_shape": bwd_summary["per_shape"],
         "g_copies_per_step": train["copies_per_step"],
         "warm_train_step_ms": train["warm_ms"],
