@@ -11,8 +11,11 @@ training through the trainer `hific_tpu_torch.cli.train` (compression
 steps, then GAN steps warmstarted from them), in fp32; then the same
 flagship in bf16 (`dtype="bfloat16"`): the codec round trip, the batch
 codec, and the trainer with remat, the corpus on the card and the
-profiler, with the model variants' tiny steps; and holds every kernel of
-those paths against its plain PyTorch version:
+profiler, with the model variants' tiny steps; then multi-GPU on the one
+card (DDP steps under NCCL and gloo, the data-parallel trainer CLI under
+`torch.distributed.run`, `dryrun_multichip(2)` and a 6 MP image through
+the partitioned codec over 4 bands); and holds every kernel of those
+paths against its plain PyTorch version:
 
 1. the card's name, power limit and count;
 2. builds the kernels from the sources in this checkout, all compilers
@@ -48,7 +51,10 @@ those paths against its plain PyTorch version:
    versions' and host coder's times and the bound; then a batch of nine
    streams (four 1024x1024 images' y and z, one 768x512 y) in one launch
    of each kernel, every buffer against the plain versions and the host
-   coder, with the batch's time and the same streams' one launch each;
+   coder, with the batch's time and the same streams' one launch each
+   (the batch takes the cases' planes, the third image's y the 768x512
+   one at escape rate 0.3, the fourth repeating the first, and is held
+   against their plain outputs);
 6. compress_file -> .hfc -> decompress_file of a seeded smooth 768x512
    image: decoded symbols equal the encoded ones, the forward kernel ran
    exactly once per ChannelNorm (29 launches) and each rANS kernel once
@@ -97,15 +103,16 @@ those paths against its plain PyTorch version:
    against the same steps on the CPU's plain path (same weights, noise
    and u): losses within 1e-4, every gradient within 1e-3 of its leaf's
    largest, u after each step within 1e-5;
-10. four flagship-width G/D step pairs through the trainer with `-mt
-   compression_gan`, warmstarted from phase 8's checkpoint (batch 8 of
-   other seeded crops): each step checked as it is called (finite
-   losses; a nonzero gradient for every codec parameter in a G step and
-   no discriminator gradient after it; a nonzero gradient for every
-   discriminator parameter in a D step and the codec's parameters
-   unchanged by it; u changed by each call; 29 forward and 29 backward
-   launches a G step, 29 and 0 a D step), the warm G and D step times,
-   the peak device memory and a profile of one more pair;
+10. three flagship-width G/D step pairs (four until PR 13) through the
+   trainer with `-mt compression_gan`, warmstarted from phase 8's
+   checkpoint (batch 8 of other seeded crops): each step checked as it
+   is called (finite losses; a nonzero gradient for every codec
+   parameter in a G step and no discriminator gradient after it; a
+   nonzero gradient for every discriminator parameter in a D step and
+   the codec's parameters unchanged by it; u changed by each call; 29
+   forward and 29 backward launches a G step, 29 and 0 a D step), the
+   warm G and D step times, the peak device memory and a profile of one
+   more pair;
 11. this slice. Tiny-config steps card vs CPU of the variants, the CPU
    step taking the card's side of each ReLU and latent rounding the two
    decided apart (`hific_tpu_torch.kinks`): bf16 (loss within 1e-3; each
@@ -128,7 +135,31 @@ those paths against its plain PyTorch version:
    launches per step and no host-to-device copy of a batch's size; one
    step's peak device memory lower with remat than without (gated), the
    warm step time and the trace's device busy share;
-12. prints the kernels' JSON line and, last, the device line.
+12. multi-GPU on the one card (run inside phase 8's directory, after
+   phase 10). Started together in the background: one G step and a timed
+   second one through the library's step under DDP from phase 8's
+   checkpoint (batch 8 of other seeded 256x256 crops), at world 1 under
+   NCCL and at world 2 ranks sharing cuda:0 under gloo, in spawned
+   ranks; `python -m torch.distributed.run --standalone --nproc_per_node
+   1 -m hific_tpu_torch.cli.train --data_parallel -mt compression` for
+   two flagship steps on seeded tiles; `python -m
+   hific_tpu_torch.parallel.dryrun 2` (a tiny GAN G + D step over two
+   ranks sharing the card, then the partitioned encoder and the spatial
+   codec against the whole image's). Meanwhile, in this process: the
+   single G step from the same checkpoint on the same global batch and
+   noise, and a seeded 2048x3072 image through compress_spatial /
+   decompress_spatial over 4 bands on cuda:0 beside compress / decompress
+   (each leg timed with its peak memory). Gated: each world's loss within
+   1e-4 and every gradient leaf within 1e-3 of its largest of the single
+   step's, 29 forward and 29 backward norm launches in every rank's step,
+   equal parameters on every rank; the CLI's checkpoint restores in the
+   single-process trainer at step 2 with the unwrapped keys; the dry run
+   passes; the partitioned `.hfc` bytes equal compress's, 0 y and 0 z
+   symbols differ, pixels within one level, a 16-pixel halo's bytes
+   differ, and each leg launches each rANS kernel once (one more for an
+   encode past the default caps). The times of this phase share the card
+   and the host with the ranks;
+13. prints the kernels' JSON line and, last, the device line.
 
 Any failure exits non-zero; no phase catches an error. Needs one CUDA card.
 """
@@ -958,7 +989,7 @@ def train_flagship(card: str, n_norms: int, exp_dir: str):
                       "copies_per_step": per_step[-1][2]}, ckpt
 
 
-GAN_PAIRS = 4  # G/D step pairs of the flagship GAN phase
+GAN_PAIRS = 3  # G/D step pairs of the flagship GAN phase
 
 
 def tiny_gan_steps_card_vs_cpu() -> str:
@@ -1225,10 +1256,13 @@ def rans_symbols(codec, kind, p, rate, rng):
 RANS_SHAPES = [("y 1024x1024", "y", 4096, (0.0, 0.08)),
                ("y 768x512", "y", 1536, (0.0, 0.08, 0.3, "multi-nibble")),
                ("z 1024x1024", "z", 256, (0.0, 0.08, 0.3))]
-# The multi-stream batch: four 1024x1024 images' y and z, one 768x512 y.
-RANS_BATCH = ([("y", 4096, r) for r in (0.0, 0.08, 0.3, 0.0)]
-              + [("z", 256, r) for r in (0.0, 0.08, 0.3, 0.0)]
-              + [("y", 1536, 0.0)])
+# The multi-stream batch, of the cases' planes: four images' y and z at
+# escape rates 0, 0.08, 0.3 and 0 (1024x1024, but the 0.3 image's y is
+# 768x512's; the fourth repeats the first), and one 768x512 y.
+RANS_BATCH = (["y 1024x1024 escapes 0.0", "y 1024x1024 escapes 0.08",
+               "y 768x512 escapes 0.3", "y 1024x1024 escapes 0.0"]
+              + [f"z 1024x1024 escapes {r}" for r in (0.0, 0.08, 0.3, 0.0)]
+              + ["y 768x512 escapes 0.0"])
 
 
 def rans_cases(codec, rng):
@@ -1264,6 +1298,14 @@ def check_rans_kernels(codec, card: str):
     packed = dict(zip("yz", codec._rans_tables))
     host_tables = {"y": codec.conditional.tables, "z": codec.factorized.tables}
     timed, max_err = {}, {"rans_encode": 0, "rans_decode": 0}
+    plain = {}  # case label -> (kind, sym, idx, plain encode, plain decode)
+
+    def plain_timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
 
     def caps_of(sym):
         p, lanes = sym.shape
@@ -1303,14 +1345,19 @@ def check_rans_kernels(codec, card: str):
         idx_d = torch.from_numpy(idx).cuda()
         job = EncodeJob(sym_d, idx_d, packed[kind], **caps_of(sym))
         got = encode_scan(*job)
-        want = encode_scan_reference(*job)
+        # The plain versions (~0.3-2 s a stream) once, timed as they run
+        # for the check: a yardstick ~1000x the kernels' time, whose spread
+        # matters little. Their outputs serve the batch's check too.
+        want, p_ms = plain_timed(lambda: encode_scan_reference(*job))
         host = host_encode(kind, sym, idx)
         check_encode(label, got, want, host, lanes)
         counts = got[2].cpu().numpy()
         words = words_tensor(host, "cuda")
         decoded, bad = decode_scan(words, idx_d, packed[kind])
-        check_decode(label, decoded, bad,
-                     decode_scan_reference(words, idx_d, packed[kind]), sym)
+        plain_dec, pd_ms = plain_timed(lambda: decode_scan_reference(
+            words, idx_d, packed[kind]))
+        check_decode(label, decoded, bad, plain_dec, sym)
+        plain[label] = (kind, sym, idx, want, plain_dec)
         log(f"rans {label}: P={p} L={lanes}, {len(host)} words "
             f"({32 * len(host) / sym.size:.3f} bits/symbol), "
             f"{int(counts[1])} push events: kernels equal their plain "
@@ -1320,9 +1367,6 @@ def check_rans_kernels(codec, card: str):
         shape = label.split(" escapes")[0]
         n = p * lanes
         k_ms = event_ms(lambda: encode_scan(*job), 20)
-        # The plain versions (~0.3-2 s a stream) once: a yardstick ~1000x
-        # the kernels' time, whose spread matters little.
-        p_ms = event_ms(lambda: encode_scan_reference(*job), 1)
         h_ms = host_ms(lambda: host_encode(kind, sym, idx), 5)
         # Bytes, each read once: the symbols and indices; of the CDF rows
         # the two words a symbol gathers or the whole table, whichever is
@@ -1338,8 +1382,7 @@ def check_rans_kernels(codec, card: str):
         if kind == "y":
             k_ms = event_ms(lambda: decode_scan(words, idx_d, packed[kind]),
                             20)
-            p_ms = event_ms(lambda: decode_scan_reference(
-                words, idx_d, packed[kind]), 1)
+            p_ms = pd_ms
             h_ms = host_ms(lambda: native.decode_lanes(
                 host, idx, t.cdf, t.cdf_length, t.cdf_offset, t.inverse,
                 t.precision), 5)
@@ -1361,10 +1404,11 @@ def check_rans_kernels(codec, card: str):
               f"(bytes; a serial scan sits far above it) ({card})",
               flush=True)
 
-    # The multi-stream batch: one launch of each kernel for all streams.
-    rng = np.random.RandomState(SEED + 1)
-    streams = [(kind, *rans_symbols(codec, kind, p, rate, rng))
-               for kind, p, rate in RANS_BATCH]
+    # The multi-stream batch: one launch of each kernel for all streams,
+    # the cases' symbol planes, each held against its case's plain outputs
+    # (the plain versions are functions of the planes and the caps alone).
+    cases = [plain[label] for label in RANS_BATCH]
+    streams = [(kind, sym, idx) for kind, sym, idx, _, _ in cases]
     jobs = [EncodeJob(torch.from_numpy(sym).cuda(),
                       torch.from_numpy(idx).cuda(), packed[kind],
                       **caps_of(sym)) for kind, sym, idx in streams]
@@ -1373,13 +1417,11 @@ def check_rans_kernels(codec, card: str):
              for h, job in zip(hosts, jobs)]
     got = encode_scan_many(jobs)
     decoded = decode_scan_many(djobs)
-    for k, ((kind, sym, idx), job, host) in enumerate(zip(streams, jobs,
-                                                          hosts)):
+    for k, ((kind, sym, idx, want, plain_dec), host) in enumerate(
+            zip(cases, hosts)):
         label = f"batch stream {k} ({kind}, P={sym.shape[0]})"
-        check_encode(label, got[k], encode_scan_reference(*job), host,
-                     sym.shape[1])
-        check_decode(label, *decoded[k], decode_scan_reference(*djobs[k]),
-                     sym)
+        check_encode(label, got[k], want, host, sym.shape[1])
+        check_decode(label, *decoded[k], plain_dec, sym)
     positions = sum(sym.shape[0] for _, sym, _ in streams)
     batch = {
         "streams": len(streams), "positions": positions,
@@ -1949,7 +1991,7 @@ def tiling_path(codec, card: str):
                              f"rans_decode) {counts}; expected (>0, "
                              f"{want[0]}, {want[1]})")
     enc_whole = codec._symbols(x_in)
-    enc_tiled = codec._symbols(x_in, TILE_IMAGE, 64)
+    enc_tiled = codec._symbols(x_in, codec.tiled_encoder(TILE_IMAGE, 64))
     for name, out, enc in (("whole", whole, enc_whole),
                            ("tiled", tiled, enc_tiled)):
         z_dec, y_dec, _ = codec.decode_symbols(out)
@@ -2622,6 +2664,291 @@ def train_bf16_flagship(card: str, n_norms: int, n_res: int, exp_dir: str):
     return launches, summary
 
 
+# Phase 12: multi-GPU on the one card.
+SPATIAL_BANDS, SPATIAL_H, SPATIAL_W = 4, 2048, 3072  # H a multiple of 4 * 16
+DP_CLI_STEPS = 2  # the data-parallel trainer CLI's steps
+DDP_WORLDS = ((1, "cuda", "nccl"), (2, "cuda:0", "gloo"))
+
+
+def ddp_ranks(world: int, device: str, backend: str, ckpt: str,
+              config_json: str, batches, workdir: str):
+    """`world` spawned ranks of the library's G step under DDP, each from
+    the checkpoint `ckpt`, on its rows of each global batch (the second
+    step timed warm); rank 0 returns the first step's gradients."""
+    from hific_tpu_torch.parallel.dryrun import spawn, train_rank
+
+    job = {"config": config_json, "device": device, "backend": backend,
+           "checkpoint": ckpt, "lpips": {"seed": SEED},
+           "steps": [("G", x) for x in batches], "grads": [0],
+           "deterministic": [0]}
+    ranks = [r[0] for r in spawn(
+        train_rank, world, job, workdir=os.path.join(workdir, f"ddp{world}"))]
+    log(f"DDP world {world} ({backend}) ranks done")
+    return ranks
+
+
+def start_dp_cli(exp_dir: str, tiles: str):
+    """`python -m torch.distributed.run --standalone --nproc_per_node 1 -m
+    hific_tpu_torch.cli.train --data_parallel -mt compression` at the
+    flagship's widths for DP_CLI_STEPS steps (batch 8 of 256x256 crops of
+    the seeded tiles), started in the background: (process, log file)."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", "-m", "hific_tpu_torch.cli.train",
+           "--data_parallel", "-mt", "compression", "-d", tiles,
+           "--steps", str(DP_CLI_STEPS), "-bs", str(TRAIN_BATCH),
+           "-crop", str(TRAIN_CROP), "--uncalibrated_lpips_ok",
+           "--seed", str(SEED), "--log_interval", "1000",
+           "--save_interval", "1000", "--experiments_dir", exp_dir]
+    return start_logged(cmd, os.path.join(exp_dir, "dp_cli.log"))
+
+
+def start_logged(cmd, log_path: str):
+    """`cmd` started in the background from this checkout's root, its
+    output to `log_path`: (process, log file)."""
+    log_file = open(log_path, "w")
+    proc = subprocess.Popen(
+        cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=log_file, stderr=subprocess.STDOUT)
+    return proc, log_file
+
+
+def finish_logged(proc, log_file, what: str, timeout: float = 600) -> None:
+    """Wait for a `start_logged` process (killed past `timeout`); raise
+    with its log's end where it exited non-zero."""
+    try:
+        rc = proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log_file.close()
+    with open(log_file.name) as f:
+        text = f.read()
+    if rc != 0:
+        raise AssertionError(f"{what} exited {rc}:\n{text[-4000:]}")
+
+
+def single_steps(ckpt: str, batches):
+    """The in-process single G steps from `ckpt` on the same global
+    batches, the first under deterministic algorithms as the ranks' first:
+    (first step's loss, its gradients on the host, the second step's ms)."""
+    from hific_tpu_torch.parallel.dryrun import deterministic_algorithms
+    from hific_tpu_torch.cli import train as train_cli
+    from hific_tpu_torch.training import checkpoints
+    from hific_tpu_torch.training.train_step import make_train_step_g
+
+    config = checkpoints.load_config(os.path.dirname(ckpt))
+    state = checkpoints.restore_train_state(ckpt, config, "cuda")
+    args = train_cli.parse_args(["--uncalibrated_lpips_ok", "--seed",
+                                 str(SEED)])
+    step = make_train_step_g(config, train_cli.make_lpips_fn(
+        args, torch.device("cuda")))
+    with deterministic_algorithms():
+        diag = step(state, batches[0])
+    loss = float(diag["weighted_compression_loss"])
+    grads = {n: p.grad.detach().cpu() for n, p in
+             state.model.named_parameters()}
+    _, ms = timed(lambda: step(state, batches[1]))
+    return loss, grads, ms
+
+
+def spatial_path(config, weights, card: str):
+    """A seeded 2048x3072 image through compress_spatial /
+    decompress_spatial over SPATIAL_BANDS bands on cuda:0 beside compress
+    / decompress: the `.hfc` bytes equal, 0 y and 0 z symbols differing
+    (a nonzero count is a fault), the pixels within one level, a 16-pixel
+    halo's bytes different; each rANS kernel once a call (once more for an
+    encode past the default caps); each leg's time and peak device memory.
+    Returns ((norm, rans_encode, rans_decode) launches, summary)."""
+    from hific_tpu_torch.codec import Codec
+    from hific_tpu_torch.parallel.mesh import make_mesh
+
+    codec = Codec(config, weights, device="cuda")
+    codec.build_tables()
+    mesh = make_mesh(["cuda:0"] * SPATIAL_BANDS)
+    x = bench_image(8, SPATIAL_H, SPATIAL_W)
+    # Each leg once first: cuDNN picks its algorithms for new shapes.
+    warm = codec.compress(x)
+    codec.compress_spatial(x, mesh)
+    codec.decompress(warm, as_uint8=True)
+    codec.decompress_spatial(warm, mesh, as_uint8=True)
+    legs, peaks, launches, totals = {}, {}, {}, [0, 0, 0]
+    relaunched = [codec.device_relaunches]
+
+    def leg(name, fn, rans):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_kernel_counts()
+        out, legs[name] = timed(fn)
+        peaks[name] = torch.cuda.max_memory_allocated() / 2 ** 30
+        launches[name] = counts = kernel_counts()
+        extra = codec.device_relaunches - relaunched[0]
+        relaunched[0] = codec.device_relaunches
+        want = (rans[0] + (extra if rans[0] else 0), rans[1])
+        if counts[0] == 0 or counts[1:] != want:
+            raise AssertionError(f"spatial leg {name}: launches (norm, "
+                                 f"rans_encode, rans_decode) {counts}, "
+                                 f"expected (>0, {want[0]}, {want[1]})")
+        for i, c in enumerate(counts):
+            totals[i] += c
+        return out
+
+    whole = leg("compress", lambda: codec.compress(x), (1, 0))
+    split = leg("compress_spatial", lambda: codec.compress_spatial(x, mesh),
+                (1, 0))
+    r_whole = leg("decompress", lambda: codec.decompress(
+        whole, as_uint8=True), (0, 1))
+    r_split = leg("decompress_spatial", lambda: codec.decompress_spatial(
+        split, mesh, as_uint8=True), (0, 1))
+    fn, replicas = codec._spatial(mesh, "encode", 64)
+    x_in = codec._model_input(x)
+    enc_whole = codec._symbols(x_in)
+    enc_split = codec._symbols(x_in, lambda t: fn(replicas, t))
+    y_diff = int((enc_whole[1] != enc_split[1]).sum())
+    z_diff = int((enc_whole[0] != enc_split[0]).sum())
+    same_bytes = bool(
+        np.array_equal(whole.latents_encoded, split.latents_encoded)
+        and np.array_equal(whole.hyperlatents_encoded,
+                           split.hyperlatents_encoded))
+    pixel = int(np.abs(r_whole.astype(int) - r_split.astype(int)).max())
+    short = codec.compress_spatial(x, mesh, halo_image=16)
+    short_differs = not np.array_equal(short.latents_encoded,
+                                       whole.latents_encoded)
+    if not (same_bytes and y_diff == 0 and z_diff == 0 and pixel <= 1
+            and short_differs and r_split.shape == x.shape):
+        raise AssertionError(
+            f"spatial codec {SPATIAL_W}x{SPATIAL_H} over {SPATIAL_BANDS} "
+            f"bands: bytes equal {same_bytes}, {y_diff} y and {z_diff} z "
+            f"symbols differ, largest pixel difference {pixel}, a 16-pixel "
+            f"halo's bytes differ {short_differs}, shape {r_split.shape}")
+    summary = {"shape": [SPATIAL_H, SPATIAL_W], "bands": SPATIAL_BANDS,
+               "bpp": whole.total_bpp, "hfc_bytes_equal": same_bytes,
+               "y_symbols_differ": y_diff, "y_symbols": int(enc_whole[1].size),
+               "z_symbols_differ": z_diff, "z_symbols": int(enc_whole[0].size),
+               "max_pixel_diff": pixel, "halo16_bytes_differ": short_differs,
+               "ms": legs, "peak_gib": peaks, "launches": launches}
+    log(f"spatial codec {SPATIAL_W}x{SPATIAL_H} ({whole.total_bpp:.4f} bpp) "
+        f"over {SPATIAL_BANDS} bands on cuda:0: .hfc bytes equal to "
+        f"compress's, {y_diff} of {enc_whole[1].size} y and {z_diff} of "
+        f"{enc_whole[0].size} z symbols differ, largest pixel difference "
+        f"{pixel}, a 16-pixel halo's bytes differ; legs: " + "; ".join(
+            f"{k} {legs[k]:.1f} ms, peak {peaks[k]:.2f} GiB, launches "
+            f"{launches[k]}" for k in legs)
+        + f" (host clock after synchronize; max_memory_allocated; {card})")
+    del codec
+    torch.cuda.empty_cache()
+    return tuple(totals), summary
+
+
+def multi_gpu_path(card: str, config, weights, ckpt: str, exp_dir: str,
+                   n_norms: int):
+    """Phase 12. (a) one G step from phase 8's checkpoint under DDP, at
+    world 1 under NCCL and at world 2 ranks sharing cuda:0 under gloo,
+    against the in-process single step on the same global batch and noise
+    (loss within 1e-4, every gradient leaf within 1e-3 of its largest), 29
+    forward and 29 backward norm launches a rank's step, and a second step
+    timed; (b) the trainer CLI under torch.distributed.run with
+    --data_parallel, whose checkpoint restores in the single-process
+    trainer; (c) dryrun_multichip(2) on the card; (d) the partitioned codec
+    (`spatial_path`). The ranks and the CLI start first and run beside the
+    parent's single steps, (d) and (c): their times share the card and
+    the host. Returns (norm forward launches by path, backward, rANS
+    (encode, decode), summary)."""
+    from hific_tpu_torch.training import checkpoints
+
+    t0 = time.perf_counter()
+    tiles = write_tiles(os.path.join(exp_dir, "dp_tiles"), SEED + 9)
+    crops = train_crops(SEED + 2)
+    batches = [next(crops)[0] for _ in range(2)]
+    config_json = checkpoints.load_config(os.path.dirname(ckpt)).to_json()
+    cli_dir = os.path.join(exp_dir, "dp_cli")
+    os.makedirs(cli_dir)
+    dry_json = os.path.join(exp_dir, "dryrun.json")
+    procs = [start_dp_cli(cli_dir, tiles),
+             start_logged([sys.executable, "-m",
+                           "hific_tpu_torch.parallel.dryrun", "2",
+                           "--json", dry_json],
+                          os.path.join(exp_dir, "dryrun.log"))]
+    pool = concurrent.futures.ThreadPoolExecutor(len(DDP_WORLDS))
+    try:
+        jobs = {world: pool.submit(ddp_ranks, world, device, backend, ckpt,
+                                   config_json, batches, exp_dir)
+                for world, device, backend in DDP_WORLDS}
+        loss, grads, single_ms = single_steps(ckpt, batches)
+        log("single steps done")
+        spatial_counts, spatial = spatial_path(config, weights, card)
+        ranks = {world: job.result() for world, job in jobs.items()}
+    finally:
+        pool.shutdown()
+        for (proc, log_file), what in zip(
+                procs, ("torch.distributed.run trainer",
+                        "dryrun_multichip(2)")):
+            finish_logged(proc, log_file, what)
+    log("DP trainer CLI and dryrun_multichip(2) done")
+    with open(dry_json) as f:
+        dry = json.load(f)
+    ckpt_dir = os.path.join(cli_dir, "hific_tpu_torch_v0.1_compression_low",
+                            "checkpoints")
+    cli_ckpt = checkpoints.latest_checkpoint(ckpt_dir)
+    cli_config = checkpoints.load_config(ckpt_dir)
+    restored = checkpoints.restore_train_state(cli_ckpt, cli_config, "cuda")
+    keys = list(restored.model.state_dict())
+    if restored.step != DP_CLI_STEPS or any(k.startswith("module.")
+                                            for k in keys):
+        raise AssertionError(f"DP trainer checkpoint {cli_ckpt}: step "
+                             f"{restored.step}, keys {keys[:3]}")
+    del restored
+    torch.cuda.empty_cache()
+
+    summary = {"single_step_ms": single_ms, "worlds": {}}
+    fwd = bwd = 0
+    for world, rs in ranks.items():
+        got = rs[0]
+        loss_rel = abs(got["diagnostics"][0]["weighted_compression_loss"]
+                       - loss) / abs(loss)
+        leaf_rel = sorted(((float((got["grads"][0][n] - g).abs().max()
+                               / g.abs().max().clamp_min(1e-30)), n)
+                           for n, g in grads.items()), reverse=True)
+        grad_rel = leaf_rel[0][0]
+        bad = [r["launches"] for r in rs
+               if any(c != (n_norms, n_norms) for c in r["launches"])]
+        agree = all(r["checksum"] == got["checksum"] for r in rs)
+        if not (loss_rel <= 1e-4 and grad_rel <= 1e-3 and not bad and agree):
+            raise AssertionError(
+                f"DDP world {world} vs the single step: loss off by "
+                f"{loss_rel:.2e}, worst gradient leaf {grad_rel:.2e} of its "
+                f"largest ({leaf_rel[:4]}), launches {bad}, ranks agree "
+                f"{agree}")
+        fwd += sum(c[0] for r in rs for c in r["launches"])
+        bwd += sum(c[1] for r in rs for c in r["launches"])
+        summary["worlds"][world] = {
+            "backend": DDP_WORLDS[world - 1][2], "loss_rel_diff": loss_rel,
+            "worst_grad_leaf_rel": grad_rel,
+            "step_ms": [r["ms"] for r in rs], "dp": got["dp"]}
+        log(f"DDP world {world} ({DDP_WORLDS[world - 1][2]}, "
+            f"{DDP_WORLDS[world - 1][1]}) vs the single step from phase 8's "
+            f"checkpoint (batch {TRAIN_BATCH} of {TRAIN_CROP}x{TRAIN_CROP}, "
+            f"fp32, TF32 off): loss rel diff {loss_rel:.2e} (limit 1e-4), "
+            f"worst gradient leaf {grad_rel:.2e} of its largest (limit "
+            f"1e-3); {n_norms} + {n_norms} norm launches a rank's step; step "
+            f"ms per rank (first, warm) "
+            + ", ".join(f"{a:.1f} / {b:.1f}" for a, b in
+                        (r["ms"] for r in rs))
+            + f"; single warm step {single_ms:.1f} ms ({card})")
+    summary.update(spatial=spatial, dryrun=dry,
+                   cli={"steps": DP_CLI_STEPS, "checkpoint":
+                        os.path.basename(cli_ckpt)},
+                   wall_s=time.perf_counter() - t0)
+    log(f"DP trainer CLI under torch.distributed.run: {DP_CLI_STEPS} steps, "
+        f"{os.path.basename(cli_ckpt)} restored in the single-process "
+        f"trainer; dryrun_multichip(2) on the card: {dry}")
+    log(f"multi-GPU phase {summary['wall_s']:.1f} s ({card})")
+    dry_fwd = sum(dry["rank_norm_launches"])
+    return ({"ddp_train_steps": fwd, "dryrun_ranks": dry_fwd,
+             "spatial_codec": spatial_counts[0]}, bwd,
+            spatial_counts[1:], summary)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--weights", default=os.path.join(
@@ -2821,7 +3148,14 @@ def main() -> int:
         log(tiny_gan_steps_card_vs_cpu())
         gan_fwd, gan_bwd, gan = train_gan_flagship(
             card, len(train_shapes), ckpt, train_dir)
+
+        # Phase 12: multi-GPU on the one card: DDP steps from phase 8's
+        # checkpoint, the DP trainer CLI, dryrun_multichip(2) and the
+        # partitioned codec.
+        mg_fwd, mg_bwd, mg_rans, multi_gpu = multi_gpu_path(
+            card, config, state, ckpt, train_dir, len(train_shapes))
     print("gan:", json.dumps(gan), flush=True)
+    print("multi-GPU:", json.dumps(multi_gpu), flush=True)
 
     # Phase 11: this slice. The variants' tiny steps card vs CPU, then the
     # flagship in bf16: the codec round trip and batch codec, and the
@@ -2850,7 +3184,7 @@ def main() -> int:
         "launches": (launches + fwd_launches + serve_counts[0]
                      + tile_counts[0] + cli_counts[0] + gan_fwd
                      + bf16_rt[0] + bf16_codec["entry_counts"][0]
-                     + bf16_launches[0]),
+                     + bf16_launches[0] + sum(mg_fwd.values())),
         "launches_by_path": {"codec_round_trip": launches,
                              "serve": serve_counts[0],
                              "tiling": tile_counts[0],
@@ -2860,7 +3194,8 @@ def main() -> int:
                              "bf16_codec_round_trip": bf16_rt[0],
                              "bf16_cli_and_serve":
                                  bf16_codec["entry_counts"][0],
-                             "bf16_train_steps": bf16_launches[0]},
+                             "bf16_train_steps": bf16_launches[0],
+                             **mg_fwd},
         "dtypes": {"bf16_codec_round_trip":
                    bf16_codec["norm_launches_by_dtype"],
                    "bf16_cli_and_serve":
@@ -2895,10 +3230,11 @@ def main() -> int:
         "route": "cuda",
         "source": "hific_tpu_torch/csrc/channel_norm.cu",
         "replaces": "hific_tpu/ops/pallas_norm.py:74",
-        "launches": bwd_launches + gan_bwd + bf16_launches[1],
+        "launches": bwd_launches + gan_bwd + bf16_launches[1] + mg_bwd,
         "launches_by_path": {"train_steps": bwd_launches,
                              "gan_train_steps": gan_bwd,
-                             "bf16_train_steps": bf16_launches[1]},
+                             "bf16_train_steps": bf16_launches[1],
+                             "ddp_train_steps": mg_bwd},
         "dtypes": {"bf16_train_steps": {"bfloat16": bf16_launches[1]},
                    "other_paths": "float32"},
         "bf16": bwd_summary["bf16"],
@@ -2925,7 +3261,8 @@ def main() -> int:
                                "bf16_codec_round_trip": bf16_rt[1],
                                "bf16_cli_and_serve":
                                    bf16_codec["entry_counts"][1],
-                               "bf16_compress_many": bf16_many[0]}),
+                               "bf16_compress_many": bf16_many[0],
+                               "spatial_codec": mg_rans[0]}),
               ("rans_decode", {"codec_round_trip": rt_rans[1],
                                "decompress_many": dec_launches,
                                "serve": serve_counts[2],
@@ -2934,7 +3271,8 @@ def main() -> int:
                                "bf16_codec_round_trip": bf16_rt[2],
                                "bf16_cli_and_serve":
                                    bf16_codec["entry_counts"][2],
-                               "bf16_decompress_many": bf16_many[1]}))]}))
+                               "bf16_decompress_many": bf16_many[1],
+                               "spatial_codec": mg_rans[1]}))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))
     return 0

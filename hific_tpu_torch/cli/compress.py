@@ -8,11 +8,14 @@ writes per-image PSNR, MS-SSIM and LPIPS with the bpp to `metrics.json`
 and `metrics.csv`:
 
     python -m hific_tpu_torch.cli.compress -ckpt params.npz -i images/ \\
-        -o out/ [--save] [--pipeline 8] [--tile_image 1024] [--device cpu]
+        -o out/ [--save] [--pipeline 8] [--tile_image 1024] [--spatial 4] \\
+        [--device cpu]
 
-Runs on the card unless `--device` names another device. The flags of
-features this package does not port yet exit with the ROADMAP item that
-holds them.
+Runs on the card unless `--device` names another device. `--spatial N`
+codes each image with its encoder and generator partitioned in row bands
+over the first N devices (`Codec.compress_spatial` / `decompress_spatial`).
+The flags of features this package does not port yet exit with the
+ROADMAP item that holds them.
 """
 
 import argparse
@@ -26,6 +29,7 @@ import torch
 
 from hific_tpu_torch.codec import Codec
 from hific_tpu_torch.entropy.container import load_compressed, save_compressed
+from hific_tpu_torch.parallel.mesh import make_mesh, visible_devices
 from hific_tpu_torch.runtime import fp32_numerics, resolve_device
 from hific_tpu_torch.training.checkpoints import resolve_eval_checkpoint
 from hific_tpu_torch.training.data import EvalDataset
@@ -36,9 +40,8 @@ from hific_tpu_torch.utils.metrics import ms_ssim, psnr
 # (flag, value that means "off", the ROADMAP.md section 1 item that holds
 # the feature).
 UNPORTED = (
-    ("spatial", 0, "Multi-GPU"),
-    ("scalar_rans", False, "Periphery: the scalar coder"),
-    ("coder_threads", 1, "Periphery: container v2"),
+    ("scalar_rans", False, "The coders: the scalar coder"),
+    ("coder_threads", 1, "The coders: container v2"),
     ("pipeline_chunk", 1, "The rest of the batch codec"),
     ("wire_chunk", 1, "The rest of the batch codec"),
 )
@@ -92,10 +95,15 @@ def parse_args(argv=None):
                         "next to the checkpoint when present")
     p.add_argument("--lpips_backbone_path", default=None,
                    help="torchvision AlexNet .features state_dict (.pth)")
+    p.add_argument("--spatial", type=int, default=0, metavar="N",
+                   help="partition each image's encoder and generator in row "
+                        "bands over the first N devices (bounded device "
+                        "memory a band for very large images; the bytes of "
+                        "the run without it when H is a multiple of N * 16). "
+                        "Mutually exclusive with --pipeline/--tile_*")
     p.add_argument("--device", default=None,
                    help="torch device; the card (cuda) unless named")
     # Not ported yet: refused unless left at their defaults.
-    p.add_argument("--spatial", type=int, default=0, metavar="N")
     p.add_argument("--scalar_rans", action="store_true")
     p.add_argument("--coder_threads", type=int, default=1)
     p.add_argument("--pipeline_chunk", type=int, default=1)
@@ -172,6 +180,11 @@ def main(argv=None):
         return os.path.join(
             a.output, os.path.splitext(os.path.basename(path))[0] + ".hfc")
 
+    if a.spatial > 1 and not a.reconstruct:
+        _spatial_run(a, codec, dataset, device, finish, hfc_path, logger)
+        _write_metrics(a, rows, logger)
+        return rows
+
     if a.pipeline > 1 and not a.reconstruct:
         # Groups through the batch codec: each group's device work is
         # enqueued before the host waits for any of it.
@@ -216,6 +229,31 @@ def main(argv=None):
                theoretical_bpp)
     _write_metrics(a, rows, logger)
     return rows
+
+
+def _spatial_run(a, codec, dataset, device, finish, hfc_path, logger):
+    """--spatial N: one image at a time, its encoder and generator in row
+    bands over the first N devices of the codec's type."""
+    if a.pipeline > 1 or a.tile_image or a.tile_latents:
+        raise SystemExit("--spatial is mutually exclusive with "
+                         "--pipeline/--tile_image/--tile_latents")
+    devices = visible_devices(device.type)
+    if len(devices) < a.spatial:
+        raise SystemExit(f"--spatial {a.spatial} needs {a.spatial} "
+                         f"devices; only {len(devices)} visible")
+    mesh = make_mesh(devices[:a.spatial])
+    logger.info("spatial codec over %s", mesh)
+    for x, source_bpp, path in dataset:
+        t0 = time.time()
+        out = codec.compress_spatial(x, mesh)
+        actual_bpp, theoretical_bpp = save_compressed(out, hfc_path(path))
+        t_enc = time.time() - t0
+        t0 = time.time()
+        recon = codec.decompress_spatial(load_compressed(hfc_path(path)),
+                                         mesh, as_uint8=True)
+        t_dec = time.time() - t0
+        finish(x, source_bpp, path, recon, t_enc, t_dec, actual_bpp,
+               theoretical_bpp)
 
 
 def _make_row(a, x, source_bpp, path, recon, t_enc, t_dec, actual_bpp,

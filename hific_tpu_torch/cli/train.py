@@ -36,8 +36,23 @@ host's resident memory passes it, checked at each log step; default 90% of
 system RAM, 0 disables) and `--profile_dir` (a `torch.profiler` trace of G
 steps 11-15, written as Chrome trace JSON). `--use_pallas_norm` is
 accepted and means nothing here: the norm always runs the CUDA kernel on a
-GPU tensor. `--data_parallel` and `--n_slices` are refused: multi-GPU
-training is not ported yet.
+GPU tensor.
+
+Data parallelism, one process per GPU under `torch.distributed.run`:
+
+    python -m torch.distributed.run --standalone --nproc_per_node 8 \
+        -m hific_tpu_torch.cli.train --data_parallel -mt compression ...
+
+Each rank joins the process group from the environment (NCCL on the
+cards, gloo with `--device cpu`), holds the state on `cuda:LOCAL_RANK` and
+steps on its rows of the global batch (`--batch_size` stays the global
+batch, which the world must divide), the codec and the discriminator in
+DDP (`training/train_step.py`). `--n_slices` lays the ranks out as
+(replica, data), one row a host (default: the hosts of the run) and must
+divide the world. The datasets decode or gather only the rank's rows;
+rank 0 alone writes checkpoints (the others wait for it), scalars,
+reconstructions, the held-out eval and the profiler trace. The RSS guard
+reads the largest host memory over the ranks, and every rank stops.
 
 `run` takes any iterator of (uint8 NHWC batch, bpp) pairs in place of the
 dataset, so a caller can drive the trainer with its own crops. LPIPS loads
@@ -59,6 +74,7 @@ import torch
 
 from hific_tpu_torch.config import ModelTypes, hific_config, mse_lpips_config
 from hific_tpu_torch.models.lpips import load_lpips
+from hific_tpu_torch.parallel.mesh import infer_n_slices, init_process_group
 from hific_tpu_torch.runtime import resolve_device
 from hific_tpu_torch.training import checkpoints
 from hific_tpu_torch.training.data import (
@@ -69,6 +85,7 @@ from hific_tpu_torch.training.data import (
 from hific_tpu_torch.training.train_step import (
     TrainState,
     create_train_state,
+    data_parallel_,
     make_eval_step,
     make_train_step_d,
     make_train_step_g,
@@ -126,9 +143,14 @@ def parse_args(argv=None):
     p.add_argument("--resume_ckpt", default=None)
     p.add_argument("--experiments_dir", default="experiments")
     p.add_argument("--data_parallel", action="store_true",
-                   help="not ported: refused")
+                   help="one rank per GPU under torch.distributed.run: the "
+                        "global batch sharded over the ranks, gradients "
+                        "averaged by DDP")
     p.add_argument("--n_slices", type=int, default=None,
-                   help="not ported: refused")
+                   help="with --data_parallel: lay the ranks out as "
+                        "(replica=hosts, data=ranks of a host); default: "
+                        "the hosts of the run (WORLD_SIZE / "
+                        "LOCAL_WORLD_SIZE); must divide the world")
     p.add_argument("--device_data", action="store_true",
                    help="upload the whole corpus to the device once and "
                         "draw crops and flips there (no per-step batch "
@@ -152,9 +174,8 @@ def parse_args(argv=None):
                    help="torch device; the card (cuda) unless named")
     p.add_argument("--seed", type=int, default=42)
     a = p.parse_args(argv)
-    if a.data_parallel or a.n_slices is not None:
-        p.error("--data_parallel / --n_slices: multi-GPU training is not "
-                "ported yet (ROADMAP.md section 1, multi-GPU)")
+    if a.n_slices is not None and not a.data_parallel:
+        p.error("--n_slices needs --data_parallel")
     return a
 
 
@@ -262,14 +283,42 @@ class _StepProfiler:
             self.prof = None
 
 
+def join_data_parallel(a, config):
+    """--data_parallel: this rank's `DataParallel`, after the checks that
+    need no process group (the slices and the batch divide the world)."""
+    world = (torch.distributed.get_world_size()
+             if torch.distributed.is_initialized()
+             else int(os.environ.get("WORLD_SIZE", "1")))
+    n_slices = a.n_slices or infer_n_slices()
+    if n_slices < 1 or world % n_slices:
+        raise SystemExit(f"--n_slices {n_slices} does not divide the world "
+                         f"of {world} ranks")
+    if config.batch_size % world:
+        raise SystemExit(f"--batch_size {config.batch_size} not divisible "
+                         f"by the {world}-rank mesh")
+    return init_process_group(a.device, n_slices=n_slices)
+
+
 def run(a, batches: Optional[Iterator] = None,
         on_step: Optional[Callable] = None) -> TrainState:
     """Train per the parsed flags `a` over `batches` (the dataset at
-    --dataset_path when None); on_step(state, diagnostics) after each G
-    and each D step (a D step's diagnostics hold `disc_loss`). Returns the
-    final state, checkpointed."""
+    --dataset_path when None; global batches under --data_parallel, of
+    which each rank takes its rows); on_step(state, diagnostics) after
+    each G and each D step (a D step's diagnostics hold `disc_loss`).
+    Returns the final state, checkpointed."""
     config = build_config(a)
-    device = resolve_device(a.device)
+    dp = join_data_parallel(a, config) if a.data_parallel else None
+    try:
+        return _run(a, config, dp, batches, on_step)
+    finally:
+        if dp is not None:
+            dp.close()
+
+
+def _run(a, config, dp, batches, on_step) -> TrainState:
+    device = resolve_device(a.device) if dp is None else dp.device
+    main = dp is None or dp.is_main
+    info = LOG.info if main else (lambda *args: None)
     exp_dir = os.path.join(a.experiments_dir,
                            f"{config.name}_{config.model_type}_{config.regime}")
     ckpt_dir = os.path.join(exp_dir, "checkpoints")
@@ -278,7 +327,7 @@ def run(a, batches: Optional[Iterator] = None,
         state = checkpoints.restore_train_state(
             a.resume_ckpt or a.warmstart_ckpt, config, device,
             warmstart=a.resume_ckpt is None, seed=a.seed)
-        LOG.info("%s %s at step %d",
+        info("%s %s at step %d",
                  "resumed" if a.resume_ckpt else "warmstarted from",
                  a.resume_ckpt or a.warmstart_ckpt, state.step)
     else:
@@ -287,25 +336,31 @@ def run(a, batches: Optional[Iterator] = None,
         raise SystemExit(f"-steps {config.n_steps} <= restored step "
                          f"{state.step}: nothing to train (steps are "
                          f"absolute)")
+    if dp is not None:
+        data_parallel_(state, dp)
+        info("data parallel: %s", dp)
     n_params = sum(p.numel() for p in state.model.parameters())
-    LOG.info("codec parameters: %.1fM on %s", n_params / 1e6, device)
+    info("codec parameters: %.1fM on %s", n_params / 1e6, device)
     lpips_fn = make_lpips_fn(a, device)
     step_g = make_train_step_g(config, lpips_fn)
     step_d = make_train_step_d(config) if config.use_discriminator else None
     d_per_g = config.discriminator_steps if step_d is not None else 0
     if batches is None and a.device_data:
         dataset = DeviceDataset(a.dataset_path, config.crop_size,
-                                config.batch_size, a.seed, device)
-        LOG.info("device-resident dataset: %s (%.0f MB on %s)",
+                                config.batch_size, a.seed, device, mesh=dp)
+        info("device-resident dataset: %s (%.0f MB on %s)",
                  tuple(dataset.data.shape), dataset.data.numel() / 1e6,
                  device)
         batches = dataset.batches()  # on the device: no prefetch thread
     elif batches is None:
         dataset = TrainDataset(a.dataset_path, config.crop_size, a.seed)
-        batches = prefetch(dataset.batches(config.batch_size), size=4)
+        batches = prefetch(dataset.batches(config.batch_size, mesh=dp),
+                           size=4)
+    elif dp is not None:
+        batches = ((dp.shard(x), dp.shard(bpp)) for x, bpp in batches)
 
     eval_fn = None
-    if a.eval_dataset_path:
+    if a.eval_dataset_path and main:
         # One fixed held-out batch and a fixed noise seed: eval curves
         # comparable across steps and runs.
         eval_ds = TrainDataset(a.eval_dataset_path, config.crop_size,
@@ -316,9 +371,10 @@ def run(a, batches: Optional[Iterator] = None,
         recon_dir = os.path.join(exp_dir, "reconstructions")
         os.makedirs(recon_dir, exist_ok=True)
 
-    writer = MetricWriter(os.path.join(exp_dir, "tensorboard"))
+    writer = MetricWriter(os.path.join(exp_dir, "tensorboard")) if main \
+        else None
     max_rss_gb = _max_rss_gb(a.max_rss_gb)
-    profiler = _StepProfiler(a.profile_dir, device)
+    profiler = _StepProfiler(a.profile_dir if main else None, device)
     t0, last_step = time.perf_counter(), state.step
     d_pending = 0  # D steps still to take after the last G step
     try:
@@ -341,8 +397,10 @@ def run(a, batches: Optional[Iterator] = None,
                 scalars["images_per_sec"] = (
                     (step - last_step) * config.batch_size * (1 + d_per_g)
                     / max(time.perf_counter() - t0, 1e-9))
-                scalars["host_rss_gb"] = _rss_gb()
-                writer.write(step, scalars, prefix="train/")
+                scalars["host_rss_gb"] = (_rss_gb() if dp is None
+                                          else dp.max(_rss_gb()))
+                if main:
+                    writer.write(step, scalars, prefix="train/")
                 if max_rss_gb and scalars["host_rss_gb"] > max_rss_gb:
                     # A checkpoint and a clean stop beat the kernel's
                     # SIGKILL.
@@ -354,7 +412,7 @@ def run(a, batches: Optional[Iterator] = None,
                         f"{path}; resume with --resume_ckpt (or train "
                         f"with --device_data to avoid per-step upload "
                         f"retention)")
-                LOG.info("step %d | loss %.3f | q_bpp %.3f | %.1f img/s",
+                info("step %d | loss %.3f | q_bpp %.3f | %.1f img/s",
                          step, scalars["weighted_compression_loss"],
                          scalars["q_rate"], scalars["images_per_sec"])
                 if eval_fn is not None:
@@ -379,13 +437,14 @@ def run(a, batches: Optional[Iterator] = None,
                 break
     finally:
         profiler.close()
-        writer.close()
+        if writer is not None:
+            writer.close()
     if d_pending:
         LOG.warning("the batches ran out %d D step(s) short of step %d's "
                     "cycle: a resume from its checkpoint starts with a G "
                     "step", d_pending, state.step)
     path = checkpoints.save_checkpoint(ckpt_dir, state, config)
-    LOG.info("final checkpoint %s", path)
+    info("final checkpoint %s", path)
     return state
 
 

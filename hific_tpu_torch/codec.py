@@ -33,12 +33,18 @@ Tiling (`compress(tile_image=)`, `decompress(tile_latents=)`,
 whose assembled latents equal the whole image's, and the generator on
 reflect-padded latent tiles whose cores cross to the host while later
 tiles run (`tiling.py`). The coders are the untiled encode's and decode's.
-`reconstruct` is the round trip without entropy coding. Not ported yet:
-`pipeline_chunk`, `wire_chunk` and the packed host-coder wire,
-`coder_threads` (container v2) and the spatial methods.
+`reconstruct` is the round trip without entropy coding.
+
+The spatially partitioned codec (`compress_spatial`, `decompress_spatial`)
+runs one image's encoder and generator in row bands over a mesh of
+devices (`parallel/spatial.py`), with a replica of the model on each
+distinct device; the hyper stages, the one shared `synth_stats` and the
+coders are `compress`'s and `decompress`'s, on the codec's device. Not
+ported yet: `pipeline_chunk`, `wire_chunk` and the packed host-coder
+wire, and `coder_threads` (container v2).
 """
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -66,7 +72,13 @@ from hific_tpu_torch.entropy.entropy_models import (
 )
 from hific_tpu_torch.entropy.rans_tables import rans_tables
 from hific_tpu_torch.models.hific import HiFiC
-from hific_tpu_torch.ops.padding import pad_factor
+from hific_tpu_torch.ops.padding import pad_factor, pad_hw
+from hific_tpu_torch.parallel.mesh import DATA_AXIS, Mesh
+from hific_tpu_torch.parallel.spatial import (
+    replicate,
+    spatial_encode_fn,
+    spatial_generate_fn,
+)
 from hific_tpu_torch.runtime import Fetch, fp32_numerics, resolve_device
 from hific_tpu_torch.tiling import tiled_downsample_apply, tiled_upsample_apply
 
@@ -166,6 +178,8 @@ class Codec:
                                         device=self.device)
         self._tables_built = False
         self._rans_tables = None  # (y, z) RansTables on the device
+        # The spatial codec's model replicas and partitioned maps, by mesh.
+        self._sp_cache = {}
         # Images whose device encode overran a buffer's default cap and
         # were launched again with larger buffers (compress and
         # compress_many).
@@ -198,23 +212,29 @@ class Codec:
         x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
         return pad_factor(x, shape_bucket) if shape_bucket else x
 
-    def _front(self, x: torch.Tensor, tile_image: Optional[int] = None,
-               halo_image: int = 64):
-        """`compress_front` of the model input, its encoder on image tiles
-        when `tile_image` is given."""
+    def tiled_encoder(self, tile_image: Optional[int], halo_image: int = 64
+                      ) -> Optional[Callable]:
+        """The encoder on image tiles of `tile_image` with `halo_image`
+        pixels of context (None: the whole image's)."""
         if tile_image is None:
+            return None
+        return lambda x: tiled_downsample_apply(
+            self.model.encoder, x, scale=ENC_SCALE, tile=tile_image,
+            halo=halo_image)
+
+    def _front(self, x: torch.Tensor, encode: Optional[Callable] = None):
+        """`compress_front` of the model input, with latents from `encode`
+        (model input -> latents: tiled or partitioned) when given."""
+        if encode is None:
             return self.model.compress_front(x)
-        y = tiled_downsample_apply(self.model.encoder, x, scale=ENC_SCALE,
-                                   tile=tile_image, halo=halo_image)
-        return self.model.compress_front_from_latents(y)
+        return self.model.compress_front_from_latents(encode(x))
 
     @_codec_numerics
     @torch.inference_mode()
-    def _symbols(self, x: torch.Tensor, tile_image: Optional[int] = None,
-                 halo_image: int = 64):
+    def _symbols(self, x: torch.Tensor, encode: Optional[Callable] = None):
         """Model input -> numpy (z_sym, y_sym, idx) in NCHW int32 and the
         hyperlatent and latent Shannon bits."""
-        y, z_sym, hyper_bits = self._front(x, tile_image, halo_image)
+        y, z_sym, hyper_bits = self._front(x, encode)
         mu, sigma, idx = self.model.synth_stats(z_sym, self.scale_table)
         y_sym, latent_bits = self.model.latent_symbols(y, mu, sigma)
         return (_numpy(z_sym, np.int32), _numpy(y_sym, np.int32),
@@ -227,11 +247,11 @@ class Codec:
         return self._symbols(x) + (tuple(int(s) for s in x.shape[2:]),)
 
     def _host_compress(self, x: torch.Tensor, spatial_shape,
-                       tile_image: Optional[int] = None,
-                       halo_image: int = 64) -> CompressionOutput:
+                       encode: Optional[Callable] = None
+                       ) -> CompressionOutput:
         """Host rANS coding of the model input's symbol planes."""
         z_sym, y_sym, idx, hyper_bits, latent_bits = self._symbols(
-            x, tile_image, halo_image)
+            x, encode)
         z_encoded, hyper_coding_shape = self.factorized.compress_symbols(z_sym)
         y_encoded, latent_coding_shape = self.conditional.compress_symbols(
             y_sym, idx)
@@ -262,13 +282,13 @@ class Codec:
     @_codec_numerics
     @torch.inference_mode()
     def _stage_device_compress(self, x: torch.Tensor,
-                               tile_image: Optional[int] = None,
-                               halo_image: int = 64) -> _StagedEncode:
+                               encode: Optional[Callable] = None
+                               ) -> _StagedEncode:
         """Enqueue one model input's device work up to the symbols: front
-        (its encoder on image tiles when `tile_image` is given) -> the one
-        shared synth_stats -> latent symbols, laid out for the encode
-        kernel. Blocks on nothing."""
-        y, z_sym, hyper_bits = self._front(x, tile_image, halo_image)
+        (latents from `encode` when given) -> the one shared synth_stats
+        -> latent symbols, laid out for the encode kernel. Blocks on
+        nothing."""
+        y, z_sym, hyper_bits = self._front(x, encode)
         mu, sigma, idx = self.model.synth_stats(z_sym, self.scale_table)
         y_sym, latent_bits = self.model.latent_symbols(y, mu, sigma)
         (_, cy, hy, wy), (_, cz, hz, wz) = y_sym.shape, z_sym.shape
@@ -349,11 +369,19 @@ class Codec:
             self.build_tables()
         spatial_shape = tuple(int(s) for s in np.shape(x)[1:3])
         x = self._model_input(x, shape_bucket)
+        return self._compress_input(x, spatial_shape,
+                                    self.tiled_encoder(tile_image, halo_image),
+                                    device_encode)
+
+    def _compress_input(self, x: torch.Tensor, spatial_shape,
+                        encode: Optional[Callable],
+                        device_encode: Optional[bool]) -> CompressionOutput:
+        """The model input's `.hfc` payload, on the device encoder or the
+        host coder as `compress` chooses."""
         if self._use_device_encode(x, device_encode):
             return self._device_compress(
-                [self._stage_device_compress(x, tile_image, halo_image)],
-                [spatial_shape])[0]
-        return self._host_compress(x, spatial_shape, tile_image, halo_image)
+                [self._stage_device_compress(x, encode)], [spatial_shape])[0]
+        return self._host_compress(x, spatial_shape, encode)
 
     def compress_many(self, images, shape_bucket: Optional[int] = None,
                       device_encode: Optional[bool] = None) -> list:
@@ -416,7 +444,12 @@ class Codec:
     def _generate(self, y_hat, spatial_shape, as_uint8: bool) -> torch.Tensor:
         """Latents -> NHWC reconstruction on the device: uint8, mapped in
         the model's dtype as the JAX package maps it, or float32."""
-        recon = self.model.generate(y_hat, spatial_shape)
+        return self._image(self.model.generate(y_hat, spatial_shape),
+                           as_uint8)
+
+    @staticmethod
+    def _image(recon: torch.Tensor, as_uint8: bool) -> torch.Tensor:
+        """NCHW [0, 1] generator output -> the NHWC reconstruction."""
         if as_uint8:
             recon = (recon * 255.0 + 0.5).to(torch.uint8)
         else:
@@ -551,6 +584,91 @@ class Codec:
         fetches = [Fetch(img) for img in imgs]
         self._check_bad(bad)
         return [img.result() for img in fetches]
+
+    # ------------------------------------------------------------------ #
+    # The spatially partitioned codec: ONE image in row bands over a mesh
+    # of devices (`parallel/spatial.py`), composed with the standard hyper,
+    # symbol and coding stages on the codec's device.
+
+    def _spatial(self, mesh: Mesh, kind: str, halo: int):
+        """The partitioned encoder or generator over `mesh` with `halo`,
+        and the model's replicas, one per distinct device (the model
+        itself on the codec's device), built once per mesh."""
+        key = (id(mesh), kind, halo)
+        if key not in self._sp_cache:
+            replicas = self._sp_cache.setdefault(
+                (id(mesh), "replicas"), replicate(self.model, mesh))
+            if kind == "encode":
+                fn = spatial_encode_fn(lambda m, t: m.encoder(t), mesh,
+                                       halo=halo)
+            else:
+                fn = spatial_generate_fn(
+                    lambda m, t: m.generate(
+                        t, (t.shape[2] * ENC_SCALE, t.shape[3] * ENC_SCALE)),
+                    mesh, halo_latents=halo)
+            self._sp_cache[key] = (fn, replicas)
+        return self._sp_cache[key]
+
+    def compress_spatial(self, x, mesh: Mesh, halo_image: int = 64
+                         ) -> CompressionOutput:
+        """Compress ONE image with the encoder partitioned in row bands over
+        `mesh`'s data axis. H is reflect-padded to a multiple of n * 16
+        (n bands); the streams equal `compress(x)`'s whenever that leaves
+        the padded height unchanged, i.e. H % (n * 16) == 0; otherwise the
+        extra bottom rows are coded too (a valid file with more latent
+        rows). The latents are gathered on the codec's device, and the
+        hyper stages, the one shared synth_stats and the coder (the device
+        encoder on a CUDA codec) are `compress`'s. Each band's device holds one
+        window's activations, so the largest image grows with the
+        devices."""
+        if not self._tables_built:
+            self.build_tables()
+        spatial_shape = tuple(int(s) for s in np.shape(x)[1:3])
+        x = self._model_input(x)
+        n = mesh.shape[DATA_AXIS]
+        h, w = x.shape[2:]
+        x = pad_hw(x, 0, -h % (n * ENC_SCALE), 0, -w % ENC_SCALE)
+        fn, replicas = self._spatial(mesh, "encode", halo_image)
+        return self._compress_input(x, spatial_shape,
+                                    lambda t: fn(replicas, t), None)
+
+    @_codec_numerics
+    @torch.inference_mode()
+    def decompress_spatial(self, out: CompressionOutput, mesh: Mesh,
+                           halo_latents: int = 16, as_uint8: bool = False
+                           ) -> np.ndarray:
+        """Decompress with the generator partitioned in row bands over
+        `mesh`'s data axis. The latents come from `decompress`'s decode
+        (the device decoder on a CUDA codec: one launch), then the bands
+        run the generator. Files whose latent rows do not band evenly over
+        the mesh, or are too few for the halo'd windows (not written by
+        `compress_spatial`), decode through the single-device generator:
+        the result is then `decompress(out)`'s. Same symbols as
+        `decompress(out)` by construction and exact windows: the pixels
+        agree to float noise (cuDNN picks its algorithms by shape)."""
+        if not self._tables_built:
+            self.build_tables()
+        self._check_compute_dtype(out)
+        bad = None
+        if self._use_device_decode([out], None):
+            y_hats, bad = self._device_latents([out])
+            y_hat, bad = y_hats[0], Fetch(bad)
+        else:
+            y_hat = self._host_latents(out)
+        n = mesh.shape[DATA_AXIS]
+        rows = int(y_hat.shape[2])
+        if rows % n or (n > 1 and (rows // n) * (n - 1) < 2 * halo_latents):
+            # The single-device generator: the program decompress() runs.
+            # Padding rows here instead would move bottom-edge pixels
+            # through the generator's receptive field.
+            img = self._generate(y_hat, out.spatial_shape, as_uint8)
+        else:
+            fn, replicas = self._spatial(mesh, "generate", halo_latents)
+            h, w = out.spatial_shape
+            img = self._image(fn(replicas, y_hat)[:, :, :h, :w], as_uint8)
+        fetch = Fetch(img)
+        self._check_bad(bad)
+        return fetch.result()
 
     @_codec_numerics
     @torch.inference_mode()

@@ -26,6 +26,7 @@ from torch import nn
 
 from hific_tpu_torch.models.layers import Conv, ConvTranspose, Norm
 from hific_tpu_torch.ops.padding import reflect_pad
+from hific_tpu_torch.ops.quantize import draw_like
 
 GENERATOR_FILTERS = (960, 480, 240, 120, 60)
 
@@ -34,9 +35,10 @@ def generator_noise(shape, generator: Optional[torch.Generator], dtype,
                     device) -> torch.Tensor:
     """`sample_noise`'s standard normal draw, (N, h, w, noise_dim) NHWC
     as in the JAX package (tests hand both packages the same noise by
-    replacing it)."""
-    return torch.randn(shape, generator=generator, dtype=dtype,
-                       device=device)
+    replacing it); inside `ops.quantize.batch_shard`, the rows of the
+    global batch's draw."""
+    return draw_like(torch.empty(shape, dtype=dtype, device=device),
+                     lambda t: t.normal_(generator=generator))
 
 
 class ResidualBlock(nn.Module):

@@ -12,7 +12,11 @@ counterpart of the JAX package's `training/checkpoints.py`.
   as the JAX package's does, refuses a source whose codec differs
   (`CODEC_FIELDS`), and restores the codec parameters, their
   optimizer state and the step; the noise generator, the discriminator
-  and its optimizer stay fresh, with a D count of 0.
+  and its optimizer stay fresh, with a D count of 0. Under data
+  parallelism rank 0 writes and every rank waits at a barrier until the
+  file is in place; the keys are the unwrapped modules' (no `module.`
+  prefix), so a data-parallel checkpoint restores into a single process
+  and the reverse.
 - `export_params_npz`: the codec parameters in the JAX package's
   `export_params_npz` layout (`p:<path>` leaves + `__config_json__`), so
   `hific_tpu.training.checkpoints.load_params_npz` loads what this package
@@ -52,8 +56,18 @@ CODEC_FIELDS = ("latent_channels", "n_residual_blocks", "hyperlatent_filters",
 
 def save_checkpoint(directory: str, state: TrainState, config: Config
                     ) -> str:
-    os.makedirs(directory, exist_ok=True)
     path = os.path.join(directory, f"step_{state.step}.pt")
+    par = state.parallel
+    if par is None or par.dp.is_main:
+        _write_checkpoint(directory, path, state, config)
+    if par is not None:
+        par.dp.barrier()
+    return path
+
+
+def _write_checkpoint(directory: str, path: str, state: TrainState,
+                      config: Config) -> None:
+    os.makedirs(directory, exist_ok=True)
     payload = {
         "step": state.step,
         "model": state.model.state_dict(),
@@ -69,7 +83,6 @@ def save_checkpoint(directory: str, state: TrainState, config: Config
     os.replace(tmp, path)
     with open(os.path.join(directory, CONFIG_FILENAME), "w") as f:
         f.write(config.to_json())
-    return path
 
 
 def latest_checkpoint(directory: str) -> Optional[str]:

@@ -8,6 +8,11 @@ train step maps them to floats on the device) with each source file's
 bpp, drawn by a pool of threads. `DeviceDataset`: the whole uint8 corpus on
 the device once, each batch's crops drawn there. Decoding needs Pillow:
 without it the datasets raise; a file Pillow cannot read is skipped.
+
+Under data parallelism (`mesh`, a `parallel.mesh.DataParallel`) the batch
+size is the global batch's: both datasets draw the global batch's random
+choices from the shared seed on every rank and keep this rank's rows, so
+the ranks' rows together are the single process's batch.
 """
 
 import collections
@@ -20,6 +25,7 @@ from typing import Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from hific_tpu_torch.parallel.mesh import shard_rows
 from hific_tpu_torch.runtime import resolve_device
 from hific_tpu_torch.utils.image_io import read_image
 
@@ -88,7 +94,25 @@ class TrainDataset:
             img = img[:, ::-1]
         return np.ascontiguousarray(img), bpp
 
-    def batches(self, batch_size: int, num_workers: int = 4
+    def _draw(self) -> Tuple[str, int]:
+        """A sample's file and seed, from the shared generator."""
+        path = self.files[self.rng.randint(len(self.files))]
+        return path, int(self.rng.randint(2 ** 31))
+
+    def _sample_or_redraw(self, path: str, seed: int
+                          ) -> Tuple[np.ndarray, float]:
+        """The sample of (path, seed); where Pillow cannot read the file,
+        that of another file drawn from a generator of `seed`, so that the
+        shared generator is not touched."""
+        redraw = np.random.RandomState(seed)
+        while True:
+            s = self._sample_path(path, np.random.RandomState(seed))
+            if s is not None:
+                return s
+            path = self.files[redraw.randint(len(self.files))]
+            seed = int(redraw.randint(2 ** 31))
+
+    def batches(self, batch_size: int, num_workers: int = 4, mesh=None
                 ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
         """Infinite stream of (uint8 (B, crop, crop, 3), bpp (B,)).
 
@@ -97,7 +121,17 @@ class TrainDataset:
         draws each sample's file and seed from the shared generator as it
         submits it, so only one thread touches that generator and the
         stream is the same on every run. num_workers <= 1: one thread,
-        every draw from the shared generator."""
+        every draw from the shared generator.
+
+        mesh (data parallelism): `batch_size` is the global batch. Every
+        rank draws the global batch's files and seeds as the threaded
+        stream does and decodes only its rows, so the ranks' rows are the
+        threaded stream's batch. A file Pillow cannot read is replaced by
+        the rank that owns its row (from a generator of its seed), so a
+        corpus with one gives other batches than a single process."""
+        if mesh is not None:
+            yield from self._shard_batches(batch_size, num_workers, mesh)
+            return
         if num_workers <= 1:
             while True:
                 imgs, bpps = [], []
@@ -109,8 +143,7 @@ class TrainDataset:
                 yield np.stack(imgs), np.asarray(bpps, np.float32)
 
         def submit(pool):
-            path = self.files[self.rng.randint(len(self.files))]
-            seed = int(self.rng.randint(2 ** 31))
+            path, seed = self._draw()
             return pool.submit(self._sample_path, path,
                                np.random.RandomState(seed))
 
@@ -129,6 +162,17 @@ class TrainDataset:
                     yield np.stack(imgs), np.asarray(bpps, np.float32)
                     imgs, bpps = [], []
 
+    def _shard_batches(self, batch_size: int, num_workers: int, mesh):
+        rows = shard_rows(np.arange(batch_size), mesh.index, mesh.world)
+        with ThreadPoolExecutor(max_workers=max(num_workers, 1)) as pool:
+            while True:
+                draws = [self._draw() for _ in range(batch_size)]
+                samples = [f.result() for f in [
+                    pool.submit(self._sample_or_redraw, *draws[i])
+                    for i in rows]]
+                yield (np.stack([img for img, _ in samples]),
+                       np.asarray([bpp for _, bpp in samples], np.float32))
+
 
 class DeviceDataset:
     """The training corpus resident on the device: every image is uploaded
@@ -142,11 +186,16 @@ class DeviceDataset:
     pipeline's scale stage is nearly a no-op); and the crops follow the
     host pipeline's distribution, not its random stream. Batches are
     uint8 NHWC device tensors, which the train step maps to floats as it
-    maps the host pipeline's. No mesh: one device, the card unless
-    `device` names another."""
+    maps the host pipeline's. On the card unless `device` names another.
+
+    mesh (data parallelism): every rank holds the corpus on its device and
+    draws the global batch's picks, offsets and flips from the shared
+    seed, then gathers only its rows: their values are the single
+    device's batch's rows."""
 
     def __init__(self, root_or_files, crop_size: int = 256,
-                 batch_size: int = 8, seed: int = 0, device=None):
+                 batch_size: int = 8, seed: int = 0, device=None,
+                 mesh=None):
         files = (list_images(root_or_files)
                  if isinstance(root_or_files, str) else list(root_or_files))
         if not files:
@@ -170,6 +219,9 @@ class DeviceDataset:
             bpps.append(_source_bpp(path, img.shape))
         if not imgs:
             raise ValueError("no readable training images found")
+        self.mesh = mesh
+        if mesh is not None:
+            shard_rows(np.arange(batch_size), mesh.index, mesh.world)
         self.data = torch.from_numpy(np.stack(imgs)).to(
             resolve_device(device))  # (N, H, W, 3)
         self.crop_size = crop_size
@@ -179,9 +231,10 @@ class DeviceDataset:
         self.generator.manual_seed(seed)
 
     def sample(self) -> torch.Tensor:
-        """One uint8 batch (B, crop, crop, 3) on the device: a uniform image
-        per row, uniform crop offsets, each crop flipped left-right with
-        probability 1/2, in one gather."""
+        """One uint8 batch (B, crop, crop, 3) on the device (this rank's
+        rows under a mesh): a uniform image per row, uniform crop offsets,
+        each crop flipped left-right with probability 1/2, in one
+        gather."""
         n, h, w, _ = self.data.shape
         b, crop, dev = self.batch_size, self.crop_size, self.data.device
         g = self.generator
@@ -189,6 +242,9 @@ class DeviceDataset:
         oy = torch.randint(0, h - crop + 1, (b,), generator=g, device=dev)
         ox = torch.randint(0, w - crop + 1, (b,), generator=g, device=dev)
         flip = torch.rand((b,), generator=g, device=dev) < 0.5
+        if self.mesh is not None:
+            idx, oy, ox, flip = (self.mesh.shard(t)
+                                 for t in (idx, oy, ox, flip))
         span = torch.arange(crop, device=dev)
         rows = oy[:, None] + span
         cols = ox[:, None] + torch.where(flip[:, None], span.flip(0), span)
@@ -202,7 +258,9 @@ class DeviceDataset:
         if batch_size is not None and batch_size != self.batch_size:
             raise ValueError(f"batch_size {batch_size} != {self.batch_size}, "
                              f"the one DeviceDataset was built for")
-        bpps = np.full((self.batch_size,), self.mean_bpp, np.float32)
+        rows = self.batch_size // (1 if self.mesh is None
+                                   else self.mesh.world)
+        bpps = np.full((rows,), self.mean_bpp, np.float32)
         while True:
             yield self.sample(), bpps
 

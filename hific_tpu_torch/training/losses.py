@@ -3,7 +3,10 @@
 losses `non_saturating_gan_loss`, `least_squares_gan_loss`, `gan_loss`).
 
 The rate penalty is a `torch.where` on the device: no host read of the
-quantized rate per step.
+quantized rate per step. It branches on the batch's mean quantized rate;
+under data parallelism the caller hands `compression_loss` the
+all-reduced mean of the global batch (`branch_qbpp`), the value the JAX
+package's SPMD step computes, so every rank takes the same branch.
 """
 
 import torch
@@ -59,11 +62,13 @@ def gan_loss(gan_loss_type: str, disc_out):
 
 
 def compression_loss(config, intermediates, lpips_fn, step: int,
-                     ignore_schedule: bool = False):
+                     ignore_schedule: bool = False, branch_qbpp=None):
     """k_M * MSE + k_P * LPIPS + weighted rate: (loss, diagnostics).
 
     lpips_fn: (x_gen, x_real) -> per-image LPIPS, or None to leave the
-    perceptual term out.
+    perceptual term out. branch_qbpp: the quantized rate the penalty's
+    branch reads (the global batch's all-reduced mean under data
+    parallelism); `intermediates.q_bpp` when None.
     """
     x_real = intermediates.input_image
     x_gen = intermediates.reconstruction
@@ -80,7 +85,8 @@ def compression_loss(config, intermediates, lpips_fn, step: int,
     weighted_distortion = config.k_M * dist
     weighted_perceptual = config.k_P * percep
     weighted_rate, rate_penalty = weighted_rate_loss(
-        config, intermediates.n_bpp, intermediates.q_bpp, step,
+        config, intermediates.n_bpp,
+        intermediates.q_bpp if branch_qbpp is None else branch_qbpp, step,
         ignore_schedule)
 
     loss = weighted_rate + weighted_distortion + weighted_perceptual

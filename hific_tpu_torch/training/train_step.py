@@ -25,6 +25,21 @@ variant's rate terms come from its hyperprior (`HyperpriorDLMM`), and
 `sample_noise` draws the generator's noise from the state's generator
 after the quantization noise.
 
+Data parallelism (`data_parallel_`): each rank of a process group holds
+the state and steps on its rows of the global batch, the codec wrapped in
+`DistributedDataParallel` for the G step and the discriminator for the D
+step, which average the gradients over the ranks (one all-reduce in the
+parameters' dtype: bfloat16 leaves in bfloat16, as the JAX package's
+partitioner reduces them in their dtype). Every loss is a batch mean, so
+the averaged gradient is the single-process step's on the global batch;
+the rate penalty branches on the all-reduced quantized rate, the noise is
+the global batch's rows (`ops.quantize.batch_shard`) and the returned
+diagnostics are all-reduced means, so a data-parallel step equals the
+single-process step on the same global batch up to the sums' order.
+Every parameter of every configuration receives a gradient, so DDP runs
+without `find_unused_parameters`. The G step's discriminator forward and
+the D step's codec forward go through the unwrapped modules.
+
 Unlike the JAX package's pure functions, a step updates the state in place
 (parameters, optimizer moments, counters, noise generator, the
 discriminator's `u`): it saves a copy of every parameter and moment per
@@ -32,7 +47,9 @@ step. Each step runs with TF32 off (`runtime.fp32_numerics`, in either
 dtype), the arithmetic the CPU parity tests hold.
 """
 
+import contextlib
 import dataclasses
+import warnings
 from typing import Callable, Optional
 
 import numpy as np
@@ -46,12 +63,22 @@ from hific_tpu_torch.models.hific import (
     init_random_,
 )
 from hific_tpu_torch.models.layers import compute_dtype
+from hific_tpu_torch.ops.quantize import batch_shard
+from hific_tpu_torch.parallel.mesh import DataParallel
 from hific_tpu_torch.runtime import fp32_numerics, resolve_device
 from hific_tpu_torch.training.losses import compression_loss, gan_loss
 from hific_tpu_torch.training.schedules import scheduled_param
 
 ADAM = dict(betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0)
 HYPER_PREFIX = "hyperprior.hyperlatent_density."
+
+
+@dataclasses.dataclass
+class Parallel:
+    """A data-parallel state's process group and DDP wrappers."""
+    dp: DataParallel
+    model: torch.nn.parallel.DistributedDataParallel
+    disc: Optional[torch.nn.parallel.DistributedDataParallel] = None
 
 
 @dataclasses.dataclass
@@ -64,6 +91,8 @@ class TrainState:
     disc: Optional[Discriminator] = None
     disc_optimizer: Optional[torch.optim.Adam] = None
     disc_steps: int = 0              # discriminator steps taken
+    # Set by data_parallel_; None in a single process.
+    parallel: Optional[Parallel] = None
 
 
 def _lr(config: Config, count: int) -> float:
@@ -105,6 +134,46 @@ def create_train_state(config: Config, seed: int = 0, device=None
     return state
 
 
+def data_parallel_(state: TrainState, dp: DataParallel) -> TrainState:
+    """Make `state` one rank's of a data-parallel run over `dp`: the codec
+    (and the discriminator) wrapped in DDP, which checks that every rank
+    holds the same shapes and broadcasts rank 0's parameters. Buffers are
+    not broadcast: the spectral norms' `u` follow from the parameters and
+    stay equal on every rank. The steps then take this rank's rows of the
+    global batch (`dp.shard`)."""
+    ids = [dp.device.index] if dp.device.type == "cuda" else None
+
+    def wrap(module):
+        with warnings.catch_warnings():
+            # Newer releases name the flag forward_sync_buffers, which
+            # still syncs at construction; both spellings skip the
+            # per-forward broadcast, which is what is wanted here.
+            warnings.simplefilter("ignore", FutureWarning)
+            return torch.nn.parallel.DistributedDataParallel(
+                module, device_ids=ids, broadcast_buffers=False)
+
+    state.parallel = Parallel(
+        dp, wrap(state.model),
+        wrap(state.disc) if state.disc is not None else None)
+    return state
+
+
+def _shard(state: TrainState):
+    """The noise draws of a data-parallel step: the global batch's rows."""
+    par = state.parallel
+    if par is None:
+        return contextlib.nullcontext()
+    return batch_shard(par.dp.index, par.dp.world)
+
+
+def _reduced(state: TrainState, diagnostics: dict) -> dict:
+    """Detached diagnostics; all-reduced means under data parallelism."""
+    diagnostics = {k: v.detach() for k, v in diagnostics.items()}
+    if state.parallel is None:
+        return diagnostics
+    return state.parallel.dp.mean(diagnostics)
+
+
 def ingest_batch(x, config: Config, device) -> torch.Tensor:
     """NHWC uint8 (numpy or tensor) -> NCHW channels-last float32 on
     `device` in [0, 1] (or [-1, 1] with normalize_input_image), the values
@@ -133,36 +202,38 @@ def make_train_step_g(config: Config, lpips_fn: Optional[Callable] = None):
     advances) w.r.t. the codec parameters, one Adam update of both groups,
     step += 1. No discriminator gradient is computed or left in `.grad`.
     Returns step_fn(state, x) -> diagnostics (device tensors, no host
-    read)."""
+    read); x is the batch, or this rank's rows of it under data
+    parallelism."""
 
     def step_fn(state: TrainState, x):
-        with fp32_numerics(deterministic=False):
+        par = state.parallel
+        with fp32_numerics(deterministic=False), _shard(state):
             x = ingest_batch(x, config, _device(state))
             state.model.train()
             state.optimizer.zero_grad(set_to_none=True)
-            intermediates, _ = state.model(x, state.generator, training=True)
+            model = state.model if par is None else par.model
+            intermediates, _ = model(x, state.generator, training=True)
+            branch = (None if par is None
+                      else par.dp.mean(intermediates.q_bpp))
             loss, diagnostics = compression_loss(
                 config, intermediates, lpips_fn, state.step,
-                config.ignore_schedule)
+                config.ignore_schedule, branch)
             if config.use_discriminator:
-                # The graph is built without the discriminator's leaves.
                 state.disc_optimizer.zero_grad(set_to_none=True)
-                state.disc.requires_grad_(False)
-                try:
-                    disc_out = discriminator_forward(
-                        intermediates, state.disc, train_generator=True)
-                finally:
-                    state.disc.requires_grad_(True)
+                disc_out = discriminator_forward(
+                    intermediates, state.disc, train_generator=True)
                 _, g_loss = gan_loss(config.gan_loss_type, disc_out)
                 loss = loss + config.beta * g_loss
                 diagnostics["gen_loss"] = g_loss
                 diagnostics["weighted_gen_loss"] = config.beta * g_loss
             diagnostics["weighted_compression_loss"] = loss
-            loss.backward()
+            # The codec's gradients only: the discriminator's parameters
+            # get none (and no weight-gradient work is done for them).
+            loss.backward(inputs=list(state.model.parameters()))
             _set_lr(state.optimizer, _lr(config, state.step))
             state.optimizer.step()
         state.step += 1
-        return {k: v.detach() for k, v in diagnostics.items()}
+        return _reduced(state, diagnostics)
 
     return step_fn
 
@@ -179,30 +250,33 @@ def make_train_step_d(config: Config):
                          f"discriminator")
 
     def step_fn(state: TrainState, x):
-        with fp32_numerics(deterministic=False):
+        par = state.parallel
+        with fp32_numerics(deterministic=False), _shard(state):
             x = ingest_batch(x, config, _device(state))
             state.model.train()
             with torch.no_grad():
                 intermediates, _ = state.model(x, state.generator,
                                                training=True)
             state.disc_optimizer.zero_grad(set_to_none=True)
-            disc_out = discriminator_forward(intermediates, state.disc,
-                                             train_generator=False)
+            disc_out = discriminator_forward(
+                intermediates, state.disc if par is None else par.disc,
+                train_generator=False)
             d_loss, _ = gan_loss(config.gan_loss_type, disc_out)
             d_loss.backward()
             _set_lr(state.disc_optimizer, _lr(config, state.disc_steps))
             state.disc_optimizer.step()
         state.disc_steps += 1
-        return {"disc_loss": d_loss.detach(),
-                "D_real": torch.mean(disc_out.d_real.detach()),
-                "D_gen": torch.mean(disc_out.d_gen.detach())}
+        return _reduced(state, {"disc_loss": d_loss,
+                                "D_real": torch.mean(disc_out.d_real),
+                                "D_gen": torch.mean(disc_out.d_gen)})
 
     return step_fn
 
 
 def make_eval_step(config: Config, lpips_fn: Optional[Callable] = None):
     """Validation forward: eval_fn(state, x, generator) -> (diagnostics,
-    intermediates), with rounded hyperlatents and no update."""
+    intermediates), with rounded hyperlatents and no update, through the
+    unwrapped codec (one process's batch, under data parallelism too)."""
 
     def eval_fn(state: TrainState, x, generator: torch.Generator):
         with fp32_numerics(deterministic=False), torch.no_grad():

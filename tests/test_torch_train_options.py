@@ -222,7 +222,8 @@ def test_max_rss_checkpoints_exits_and_resumes(tmp_path, one_thread):
 def test_jax_flags_parse_with_their_meanings():
     """The JAX CLI's flags: --dtype, --use_remat and
     --use_latent_mixture_model reach the config; --use_pallas_norm is
-    accepted; --data_parallel and --n_slices are refused."""
+    accepted; --data_parallel and --n_slices parse, and --n_slices without
+    --data_parallel is refused."""
     a = train_cli.parse_args(TINY_FLAGS + [
         "--dtype", "bfloat16", "--use_remat", "--use_latent_mixture_model",
         "--use_pallas_norm", "--device_data", "--max_rss_gb", "0",
@@ -231,9 +232,11 @@ def test_jax_flags_parse_with_their_meanings():
     assert (cfg.dtype, cfg.use_remat, cfg.use_latent_mixture_model,
             cfg.use_pallas_norm) == ("bfloat16", True, True, True)
     assert train_cli.parse_args(TINY_FLAGS).max_rss_gb == -1.0
-    for extra in (["--data_parallel"], ["--n_slices", "2"]):
-        with pytest.raises(SystemExit):
-            train_cli.parse_args(TINY_FLAGS + extra)
+    a = train_cli.parse_args(TINY_FLAGS + ["--data_parallel",
+                                           "--n_slices", "2"])
+    assert (a.data_parallel, a.n_slices) == (True, 2)
+    with pytest.raises(SystemExit):
+        train_cli.parse_args(TINY_FLAGS + ["--n_slices", "2"])
 
 
 @pytest.mark.parametrize("field,value", [("use_channel_norm", False),
