@@ -46,14 +46,15 @@ paths against its plain PyTorch version:
    its tables; then runs rans_encode and rans_decode against their plain
    versions, bit for bit, on seeded symbol planes at the path's shapes (y
    of 1024x1024 and 768x512 images, z of a 1024x1024 one; escape rates 0,
-   0.08 and 0.3 and a multi-nibble payload), streams equal to the host
-   coder's, with the kernels' times (and us a position), the plain
-   versions' and host coder's times and the bound; then a batch of nine
-   streams (four 1024x1024 images' y and z, one 768x512 y) in one launch
-   of each kernel, every buffer against the plain versions and the host
-   coder, with the batch's time and the same streams' one launch each
-   (the batch takes the cases' planes, the third image's y the 768x512
-   one at escape rate 0.3, the fourth repeating the first, and is held
+   0.08 and 0.3 and a multi-nibble payload; the 1024x1024 y at rate 0
+   only since PR 15), streams equal to the host coder's, with the
+   kernels' times (and us a position), the plain versions' and host
+   coder's times and the bound; then a batch of nine streams (four
+   images' y and z, one 768x512 y) in one launch of each kernel, every
+   buffer against the plain versions and the host coder, with the
+   batch's time and the same streams' one launch each (the batch takes
+   the cases' planes: the y of the images at escape rates 0.08 and 0.3
+   are the 768x512 ones, the fourth image repeats the first; it is held
    against their plain outputs);
 6. compress_file -> .hfc -> decompress_file of a seeded smooth 768x512
    image: decoded symbols equal the encoded ones, the forward kernel ran
@@ -69,7 +70,18 @@ paths against its plain PyTorch version:
    pipelined and device-resident times with the rANS kernels' device time
    in a profiled pass; and the count of coding indices
    where the card's synth_stats differs from the CPU's on one image's
-   hyperlatents (reported, not gated); then a seeded 2000x3000 image
+   hyperlatents (reported, not gated); then the same four images at
+   pipeline_chunk 4 (the transforms image by image, the reconstructions in
+   one copy a chunk): `.hfc` bytes, pixels and coding indices equal chunk
+   1's, one rANS launch of each kind a call (one more past the caps) and
+   the norm kernel once a layer an image, with the pipelined MP/s at
+   chunk 1 and 4; then the host coders on the
+   calibrated codec and 768x512 images: coder_threads 4 (container v2)
+   decoding to the v1 file's symbols and pixels at most 46 bytes larger
+   with no rANS launch, the scalar coder (vectorize=False) decoding to the
+   same symbols and pixels, and compress_many / decompress_many on the
+   host coder at wire_chunk 4 against wire_chunk 1 (same bytes and pixels,
+   no thread left); then a seeded 2000x3000 image
    compressed whole and with tile_image=1024, halo_image=64, each file
    decoding on the host coder to the symbols it encoded, the symbols where
    the two encodes differ (measured), decompress(as_uint8) whole against
@@ -77,8 +89,9 @@ paths against its plain PyTorch version:
    launch per leg, each leg's time and peak device memory, and the
    generator's peak on one tile-32 window under deterministic cuDNN and
    with cuDNN free; then `cli/serve.py` in-process on 127.0.0.1 (port 0,
-   max_batch 8, batch window 2 ms, the encoder calibrated as in the batch
-   phase, one batch of each kind run before the timed window):
+   max_batch 8, batch window 2 ms, pipeline_chunk 4, the encoder
+   calibrated as in the batch phase, one batch of each kind run before
+   the timed window):
    4 client threads POST 4 seeded 768x512 PNGs each to /compress, then
    the bodies to /decompress; each body equals the same codec's
    compress_many([x]) bytes, each PNG its decompress_many pixels, some
@@ -125,7 +138,11 @@ paths against its plain PyTorch version:
    (symbols lossless; 29 norm launches, norm_in's on the fp32 decoded
    latents and the rest bf16; one launch of each rANS kernel), then the
    batch path of phase 6 (bytes equal to the host coder's; serial,
-   pipelined and device-resident MP/s). The trainer, `-mt compression
+   pipelined and device-resident MP/s; pipeline_chunk 4 with its gates),
+   and 16 seeded 256x256 images at pipeline_chunk 1 and 4 (MP/s at each,
+   the device busy share of a profiled pass at 4, the same bytes and
+   pixels at both). The
+   trainer, `-mt compression
    --dtype bfloat16 --use_remat --device_data --profile_dir <tmp> --steps
    16` in-process on seeded 320x320 tiles (batch 8 of 256x256 crops):
    each step finite, a nonzero gradient for every codec parameter, the
@@ -1253,13 +1270,14 @@ def rans_symbols(codec, kind, p, rate, rng):
             np.ascontiguousarray(idx, np.int32))
 
 
-RANS_SHAPES = [("y 1024x1024", "y", 4096, (0.0, 0.08)),
+RANS_SHAPES = [("y 1024x1024", "y", 4096, (0.0,)),
                ("y 768x512", "y", 1536, (0.0, 0.08, 0.3, "multi-nibble")),
                ("z 1024x1024", "z", 256, (0.0, 0.08, 0.3))]
 # The multi-stream batch, of the cases' planes: four images' y and z at
-# escape rates 0, 0.08, 0.3 and 0 (1024x1024, but the 0.3 image's y is
-# 768x512's; the fourth repeats the first), and one 768x512 y.
-RANS_BATCH = (["y 1024x1024 escapes 0.0", "y 1024x1024 escapes 0.08",
+# escape rates 0, 0.08, 0.3 and 0 (1024x1024, but the y of the 0.08 and
+# 0.3 images are 768x512's; the fourth repeats the first), and one 768x512
+# y.
+RANS_BATCH = (["y 1024x1024 escapes 0.0", "y 768x512 escapes 0.08",
                "y 768x512 escapes 0.3", "y 1024x1024 escapes 0.0"]
               + [f"z 1024x1024 escapes {r}" for r in (0.0, 0.08, 0.3, 0.0)]
               + ["y 768x512 escapes 0.0"])
@@ -1475,10 +1493,183 @@ def calibrate(codec, x, band=(0.20, 0.45), probes: int = 12):
     raise AssertionError(f"calibration did not reach {band} bpp")
 
 
-def batch_path(codec, card: str):
+CHUNK = 4                    # pipeline_chunk of the chunked batch paths
+SMALL_IMAGES, SMALL_SIDE = 16, 256  # the small-image traffic, bf16 only
+
+
+def hfc_bytes(out) -> bytes:
+    from hific_tpu_torch.entropy.container import dumps_compressed
+
+    return dumps_compressed(out)[0]
+
+
+def chunk_symbols(codec, imgs):
+    """Each image's (y, z, coding indices) as `compress_many` stages it."""
+    return [(s.y_sym, s.z_sym, s.idx) for s in codec._fetch_symbols(
+        [codec._stage(codec._model_input(x), x.shape[1:3]) for x in imgs])]
+
+
+def chunked_calls(codec, imgs, outs, recons, what: str):
+    """compress_many and decompress_many of `imgs` at pipeline_chunk CHUNK
+    against their pipeline_chunk 1 results `outs` and `recons`: the same
+    `.hfc` bytes, pixels and coding indices (gated); one encode launch
+    (one more past the caps) and one decode launch a call, and the norm
+    kernel once a layer an image (gated: the transforms run image by
+    image). Returns the launch counts."""
+    relaunches = codec.device_relaunches
+    codec.pipeline_chunk = CHUNK
+    zero_kernel_counts()
+    outs4 = codec.compress_many(imgs)
+    enc = kernel_counts()
+    zero_kernel_counts()
+    recons4 = codec.decompress_many(outs4, as_uint8=True)
+    dec = kernel_counts()
+    sym4 = chunk_symbols(codec, imgs)
+    codec.pipeline_chunk = 1
+    sym1 = chunk_symbols(codec, imgs)
+    relaunched = codec.device_relaunches - relaunches
+    n_norm = len(main_path_norm_shapes(codec.config, *imgs[0].shape[1:3]))
+    if (enc[1:], dec[1:]) != ((1 + (relaunched > 0), 0), (0, 1)):
+        raise AssertionError(f"{what} at pipeline_chunk {CHUNK}: launches "
+                             f"{enc} to encode, {dec} to decode; expected "
+                             f"one rANS launch a call")
+    if (enc[0], dec[0]) != (5 * len(imgs), (n_norm - 5) * len(imgs)):
+        raise AssertionError(f"{what} at pipeline_chunk {CHUNK}: {enc[0]} "
+                             f"and {dec[0]} norm launches; expected one a "
+                             f"layer an image")
+    differ = {name: sum(int((a[k] != b[k]).sum()) for a, b in zip(sym1, sym4))
+              for k, name in enumerate(("y", "z", "indices"))}
+    if any(differ.values()):
+        raise AssertionError(f"{what}: chunked symbols differ {differ}")
+    if [hfc_bytes(o) for o in outs4] != [hfc_bytes(o) for o in outs]:
+        raise AssertionError(f"{what}: the .hfc bytes at pipeline_chunk "
+                             f"{CHUNK} differ from the per-image ones")
+    if not all(np.array_equal(a, b) for a, b in zip(recons4, recons)):
+        raise AssertionError(f"{what}: the pixels at pipeline_chunk {CHUNK} "
+                             f"differ from the per-image ones")
+    return {"encode_launches": {"channel_norm": enc[0], "rans_encode": enc[1]},
+            "decode_launches": {"channel_norm": dec[0], "rans_decode": dec[2]},
+            "relaunched": relaunched, "symbols_differ": differ}
+
+
+def chunk_path(codec, imgs, outs, recons, small_images: bool, card: str):
+    """The batch path's calibrated images at pipeline_chunk CHUNK
+    (`chunked_calls`); with `small_images`, SMALL_IMAGES seeded
+    SMALL_SIDE-square images too, at pipeline_chunk 1 and CHUNK: per chunk
+    size a pass's MP/s (compress_many, decompress_many to numpy; median of
+    3), the device busy share of one profiled pass at CHUNK, and the bytes
+    and pixels of CHUNK's pass equal chunk 1's (gated)."""
+    summary = {"bench": chunked_calls(codec, imgs, outs, recons,
+                                      "4 x 1024x1024")}
+    log(f"pipeline_chunk {CHUNK}, 4 x 1024x1024: .hfc bytes, pixels and "
+        f"coding indices equal chunk 1's; launches {summary['bench']}")
+    if not small_images:
+        return summary
+    small = [bench_image(s, SMALL_SIDE, SMALL_SIDE)
+             for s in range(1, SMALL_IMAGES + 1)]
+    mp = SMALL_IMAGES * SMALL_SIDE ** 2 / 1e6
+    passes = {}
+
+    def one_pass():
+        outs = codec.compress_many(small)
+        passes[codec.pipeline_chunk] = (
+            [hfc_bytes(o) for o in outs], codec.decompress_many(outs))
+        return outs
+
+    one_pass()  # the first pass at this shape, untimed
+    row = {"images": SMALL_IMAGES, "side": SMALL_SIDE,
+           "bpp": float(np.mean([o.total_bpp for o in one_pass()]))}
+    for chunk in (1, CHUNK):
+        codec.pipeline_chunk = chunk
+        ms = float(np.median([timed(one_pass)[1] for _ in range(3)]))
+        row[f"chunk{chunk}"] = {"ms": ms, "mp_s": mp / ms * 1e3}
+    wall_ms, _, busy_ms = profiled(one_pass)
+    codec.pipeline_chunk = 1
+    (bytes1, recons1), (bytes4, recons4) = passes[1], passes[CHUNK]
+    if bytes4 != bytes1 or not all(np.array_equal(a, b)
+                                   for a, b in zip(recons4, recons1)):
+        raise AssertionError(f"small images: bytes or pixels at "
+                             f"pipeline_chunk {CHUNK} differ from chunk 1's")
+    row[f"chunk{CHUNK}"].update(profiled_wall_ms=wall_ms,
+                                device_busy_ms=busy_ms,
+                                busy_share=busy_ms / wall_ms)
+    summary["small"] = row
+    log(f"{SMALL_IMAGES} x {SMALL_SIDE}x{SMALL_SIDE} at {row['bpp']:.4f} "
+        f"bpp: chunk 1 {row['chunk1']['mp_s']:.3f} MP/s, chunk {CHUNK} "
+        f"{row[f'chunk{CHUNK}']['mp_s']:.3f} MP/s (a profiled pass: wall "
+        f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, "
+        f"{row[f'chunk{CHUNK}']['busy_share']:.0%}); bytes and pixels "
+        f"equal (host clock after synchronize, median of 3; {card})")
+    return summary
+
+
+def host_coders_path(codec, card: str):
+    """The host coders on the calibrated codec, 768x512 images: with
+    coder_threads 4 (container v2) the file decodes to the v1 file's
+    symbols and pixels, is at most 6 + 2 * 4 * (1 + 4) bytes larger and
+    launches no rANS kernel; with vectorize=False the scalar stream decodes
+    to the same symbols and pixels; compress_many / decompress_many on the
+    host coder of four images at wire_chunk 4 give wire_chunk 1's bytes
+    and pixels; no thread outlives a call. Returns the summary."""
+    import threading
+
+    x = smooth_image(SEED)
+    v1 = codec.compress(x)
+    z1, y1, _ = codec.decode_symbols(v1)
+    r1 = codec.decompress(v1, as_uint8=True)
+    threads = threading.active_count()
+    sizes = {"v1": len(hfc_bytes(v1))}
+    for name, option, value in (("v2", "coder_threads", 4),
+                                ("scalar", "vectorize", False)):
+        default = getattr(codec, option)
+        setattr(codec, option, value)
+        zero_kernel_counts()
+        out, enc_ms = timed(lambda: codec.compress(x))
+        r, dec_ms = timed(lambda: codec.decompress(out, as_uint8=True))
+        counts = kernel_counts()
+        z, y, _ = codec.decode_symbols(out)
+        setattr(codec, option, default)
+        sizes[name] = len(hfc_bytes(out))
+        sizes[f"{name}_ms"] = {"compress": enc_ms, "decompress": dec_ms}
+        if counts[1:] != (0, 0):
+            raise AssertionError(f"{name}: rANS kernels launched {counts[1:]}")
+        if not (np.array_equal(z, z1) and np.array_equal(y, y1)
+                and np.array_equal(r, r1)):
+            raise AssertionError(f"{name}: symbols or pixels differ from v1's")
+    if sizes["v2"] > sizes["v1"] + 6 + 2 * 4 * (1 + 4):
+        raise AssertionError(f"v2 file {sizes['v2']} bytes against v1's "
+                             f"{sizes['v1']}")
+    imgs = [smooth_image(SEED + k) for k in range(4)]
+    wire = {}
+    for chunk in (1, CHUNK):
+        codec.wire_chunk = chunk
+        outs, enc_ms = timed(lambda: codec.compress_many(
+            imgs, device_encode=False))
+        recons, dec_ms = timed(lambda: codec.decompress_many(
+            outs, as_uint8=True, device_decode=False))
+        wire[chunk] = ([hfc_bytes(o) for o in outs], recons, enc_ms, dec_ms)
+    codec.wire_chunk = 1
+    if wire[1][0] != wire[CHUNK][0] or not all(
+            np.array_equal(a, b) for a, b in zip(wire[1][1], wire[CHUNK][1])):
+        raise AssertionError(f"wire_chunk {CHUNK}: bytes or pixels differ "
+                             f"from wire_chunk 1's")
+    if threading.active_count() != threads:
+        raise AssertionError("a coder thread outlived its call")
+    summary = {**sizes, "wire_chunk_ms": {
+        str(c): {"compress_many": w[2], "decompress_many": w[3]}
+        for c, w in wire.items()}}
+    log(f"host coders, {IMAGE_W}x{IMAGE_H}: v1 {sizes['v1']} B, v2 (4 "
+        f"shards) {sizes['v2']} B, scalar {sizes['scalar']} B; same symbols "
+        f"and pixels, no rANS launch; wire_chunk {CHUNK} = wire_chunk 1 on 4 "
+        f"images (host coder, ms {summary['wire_chunk_ms']}; {card})")
+    return summary
+
+
+def batch_path(codec, card: str, small_images: bool = False):
     """compress_many / decompress_many on four seeded 1024x1024 images at
-    bench.py's operating point, through the device coders. Returns the
-    launch counts of each path and the summary."""
+    bench.py's operating point, through the device coders, at
+    pipeline_chunk 1 and CHUNK (`chunk_path`, with the small images where
+    asked). Returns the launch counts of each path and the summary."""
     from hific_tpu_torch import codec as codec_module
     from hific_tpu_torch.entropy import device_rans
     from hific_tpu_torch.entropy.container import (load_compressed,
@@ -1545,13 +1736,14 @@ def batch_path(codec, card: str):
         f"encode and 1 decode launch; .hfc bytes equal the host coder's, uint8 images "
         f"the host decoder's; an encode past forced caps of 8 words and 16 "
         f"events relaunched on the card to the same bytes")
+    chunked = chunk_path(codec, imgs, outs, recons, small_images, card)
 
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "serial.hfc")
         codec.compress_file(x0, path)
         codec.decompress_file(path, as_uint8=True)
         t_enc, t_dec = [], []
-        for _ in range(5):
+        for _ in range(3):
             _, e = timed(lambda: codec.compress_file(x0, path))
             _, d = timed(lambda: codec.decompress_file(path, as_uint8=True))
             t_enc.append(e)
@@ -1568,7 +1760,11 @@ def batch_path(codec, card: str):
             return [int(r[0, 0, 0, 0]) for r in recons]
 
         one_pass()
-        pipelined = float(np.median([timed(one_pass)[1] for _ in range(7)]))
+        pipelined = float(np.median([timed(one_pass)[1] for _ in range(5)]))
+        codec.pipeline_chunk = CHUNK  # the same shapes: warm already
+        pipelined_chunk = float(np.median([timed(one_pass)[1]
+                                           for _ in range(3)]))
+        codec.pipeline_chunk = 1
     imgs_dev = [torch.from_numpy(x).cuda() for x in imgs]
 
     def device_pass():
@@ -1577,7 +1773,7 @@ def batch_path(codec, card: str):
         return [int(r[0, 0, 0, 0]) for r in recons]
 
     device_pass()
-    resident = float(np.median([timed(device_pass)[1] for _ in range(7)]))
+    resident = float(np.median([timed(device_pass)[1] for _ in range(5)]))
     wall_ms, rows, busy_ms = profiled(device_pass)
     kernel_ms = {k: sum(e.self_device_time_total for e in rows if k in e.key)
                  / 1e3 for k in ("rans_encode", "rans_decode", "channel_norm")}
@@ -1599,6 +1795,8 @@ def batch_path(codec, card: str):
         "pipelined_ms_per_image": pipelined / 4,
         "pipelined_mp_s": 4 * mp / (pipelined / 1e3),
         "device_resident_mp_s": 4 * mp / (resident / 1e3),
+        f"pipelined_mp_s_chunk{CHUNK}": 4 * mp / (pipelined_chunk / 1e3),
+        "chunked": chunked,
         "profiled_rans_encode_ms": kernel_ms["rans_encode"],
         "profiled_rans_decode_ms": kernel_ms["rans_decode"],
         "profiled_channel_norm_ms": kernel_ms["channel_norm"],
@@ -1608,8 +1806,10 @@ def batch_path(codec, card: str):
         f"({summary['serial_mp_s']:.3f} MP/s); pipelined x4 "
         f"{summary['pipelined_ms_per_image']:.1f} ms per image "
         f"({summary['pipelined_mp_s']:.3f} MP/s); device-resident x4 "
-        f"{summary['device_resident_mp_s']:.3f} MP/s (host clock after "
-        f"synchronize, medians of 5 and 7; {card})")
+        f"{summary['device_resident_mp_s']:.3f} MP/s; at pipeline_chunk "
+        f"{CHUNK}: pipelined {summary[f'pipelined_mp_s_chunk{CHUNK}']:.3f} "
+        f"MP/s (host clock after synchronize, medians of 3, 5 and 3; "
+        f"{card})")
     return (enc_launches, dec_launches), outs[0], summary
 
 
@@ -1886,6 +2086,7 @@ def serve_path(server, card: str):
     d_wall, _, d_busy = profiled(lambda: service._run_batch(djobs))
     summary = {
         "clients": SERVE_CLIENTS, "alpha": alpha,
+        "pipeline_chunk": codec.pipeline_chunk,
         "bpp": float(np.mean(bpps)),
         "compress": latency_summary(times["compress"], legs["compress"]),
         "decompress": latency_summary(times["decompress"],
@@ -1909,7 +2110,8 @@ def serve_path(server, card: str):
             f"{alpha:.5f}; {card})")
     log(f"serve: {stats['compress_batches']} compress and "
         f"{stats['decompress_batches']} decompress batches, max batch "
-        f"{stats['max_batch_seen']}; launches norm {counts[0]}, rans_encode "
+        f"{stats['max_batch_seen']} (pipeline_chunk {codec.pipeline_chunk})"
+        f"; launches norm {counts[0]}, rans_encode "
         f"{counts[1]}, rans_decode {counts[2]} (one of each rANS kernel per "
         f"batch); bodies equal compress_many's bytes, PNGs "
         f"decompress_many's pixels")
@@ -2199,7 +2401,8 @@ def bf16_codec_path(config, state, card: str):
     tf32 = tf32_named_kernels(codec, x)
     entry_counts, entry_dtypes, entry = bf16_entry_points(codec, config,
                                                           state, card)
-    (enc_launches, dec_launches), _, batch = batch_path(codec, card)
+    (enc_launches, dec_launches), _, batch = batch_path(codec, card,
+                                                        small_images=True)
     del codec
     torch.cuda.empty_cache()
     return (counts, (enc_launches, dec_launches), batch,
@@ -3110,6 +3313,10 @@ def main() -> int:
         f"the same hyperlatents: {flipped} of {n_idx} differ (measured, not "
         f"gated)")
     print("batch path:", json.dumps(batch), flush=True)
+    # Phase 6c': the host coders (container v2, the scalar coder,
+    # wire_chunk) on the calibrated codec.
+    host_coders = host_coders_path(codec, card)
+    print("host coders:", json.dumps(host_coders), flush=True)
 
     # Phase 6d: a 6 MP image whole and on tiles.
     tile_counts, tiling = tiling_path(codec, card)
@@ -3175,6 +3382,17 @@ def main() -> int:
             card, len(train_shapes), config.n_residual_blocks, train_dir)
     print("bf16 train:", json.dumps(bf16_train), flush=True)
 
+    # The chunked batch paths' launches (pipeline_chunk CHUNK), by path.
+    chunk_norms = {}
+    chunk_rans = {"rans_encode": {}, "rans_decode": {}}
+    for prefix, summary in (("", batch), ("bf16_", bf16_batch)):
+        calls = summary["chunked"]["bench"]
+        path = f"{prefix}compress_decompress_many_chunk{CHUNK}"
+        chunk_norms[path] = (calls["encode_launches"]["channel_norm"]
+                             + calls["decode_launches"]["channel_norm"])
+        for kernel, leg in (("rans_encode", "encode_launches"),
+                            ("rans_decode", "decode_launches")):
+            chunk_rans[kernel][path] = calls[leg][kernel]
     log(f"total wall time {time.perf_counter() - T_START:.1f} s ({card})")
     print(json.dumps({"kernels": [{
         "name": "channel_norm",
@@ -3184,8 +3402,10 @@ def main() -> int:
         "launches": (launches + fwd_launches + serve_counts[0]
                      + tile_counts[0] + cli_counts[0] + gan_fwd
                      + bf16_rt[0] + bf16_codec["entry_counts"][0]
-                     + bf16_launches[0] + sum(mg_fwd.values())),
-        "launches_by_path": {"codec_round_trip": launches,
+                     + bf16_launches[0] + sum(mg_fwd.values())
+                     + sum(chunk_norms.values())),
+        "launches_by_path": {**chunk_norms,
+                             "codec_round_trip": launches,
                              "serve": serve_counts[0],
                              "tiling": tile_counts[0],
                              "cli": cli_counts[0],
@@ -3253,7 +3473,8 @@ def main() -> int:
     }] + [rans_entry(name, rans_timed, rans_err[name], launches_by_path,
                      rans_batch)
           for name, launches_by_path in (
-              ("rans_encode", {"codec_round_trip": rt_rans[0],
+              ("rans_encode", {**chunk_rans["rans_encode"],
+                               "codec_round_trip": rt_rans[0],
                                "compress_many": enc_launches,
                                "serve": serve_counts[1],
                                "tiling": tile_counts[1],
@@ -3263,7 +3484,8 @@ def main() -> int:
                                    bf16_codec["entry_counts"][1],
                                "bf16_compress_many": bf16_many[0],
                                "spatial_codec": mg_rans[0]}),
-              ("rans_decode", {"codec_round_trip": rt_rans[1],
+              ("rans_decode", {**chunk_rans["rans_decode"],
+                               "codec_round_trip": rt_rans[1],
                                "decompress_many": dec_launches,
                                "serve": serve_counts[2],
                                "tiling": tile_counts[2],

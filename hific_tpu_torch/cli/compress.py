@@ -9,13 +9,15 @@ and `metrics.csv`:
 
     python -m hific_tpu_torch.cli.compress -ckpt params.npz -i images/ \\
         -o out/ [--save] [--pipeline 8] [--tile_image 1024] [--spatial 4] \\
-        [--device cpu]
+        [--scalar_rans] [--coder_threads 4] [--pipeline_chunk 4] \\
+        [--wire_chunk 4] [--device cpu]
 
 Runs on the card unless `--device` names another device. `--spatial N`
 codes each image with its encoder and generator partitioned in row bands
 over the first N devices (`Codec.compress_spatial` / `decompress_spatial`).
-The flags of features this package does not port yet exit with the
-ROADMAP item that holds them.
+`--scalar_rans`, `--coder_threads`, `--pipeline_chunk` and `--wire_chunk`
+go to the `Codec` as in the JAX package's CLI: scalar streams, lane-sharded
+streams (container v2), and the batch codec's chunks under `--pipeline`.
 """
 
 import argparse
@@ -37,26 +39,6 @@ from hific_tpu_torch.utils.image_io import write_png
 from hific_tpu_torch.utils.logging import setup_logger
 from hific_tpu_torch.utils.metrics import ms_ssim, psnr
 
-# (flag, value that means "off", the ROADMAP.md section 1 item that holds
-# the feature).
-UNPORTED = (
-    ("scalar_rans", False, "The coders: the scalar coder"),
-    ("coder_threads", 1, "The coders: container v2"),
-    ("pipeline_chunk", 1, "The rest of the batch codec"),
-    ("wire_chunk", 1, "The rest of the batch codec"),
-)
-
-
-def refuse_unported(a) -> None:
-    """Exit non-zero where a flag of `a` asks for an unported feature."""
-    for flag, off, item in UNPORTED:
-        value = getattr(a, flag, off)
-        if value != off:
-            raise SystemExit(f"--{flag} {value}: not ported to "
-                             f"hific_tpu_torch yet (ROADMAP.md section 1, "
-                             f"'{item}')")
-
-
 def parse_args(argv=None):
     p = argparse.ArgumentParser(
         description="Compress images with HiFiC (PyTorch port)")
@@ -70,6 +52,13 @@ def parse_args(argv=None):
     p.add_argument("--save", action="store_true",
                    help="also save reconstructions as PNG")
     p.add_argument("--no_metrics", action="store_true")
+    p.add_argument("--scalar_rans", action="store_true",
+                   help="single-lane rANS (smaller files, slower)")
+    p.add_argument("--coder_threads", type=int, default=1,
+                   help="lane-shard each rANS payload into this many "
+                        "independent streams coded in parallel host threads "
+                        "(writes container v2; ~zero size overhead, not "
+                        "readable by the reference implementation)")
     p.add_argument("--tile_latents", type=int, default=None,
                    help="run the generator on latent tiles of this size. "
                         "On an H100 this does not lower the decode's peak "
@@ -88,6 +77,16 @@ def parse_args(argv=None):
     p.add_argument("--pipeline", type=int, default=0, metavar="N",
                    help="compress in groups of N images through "
                         "compress_many / decompress_many")
+    p.add_argument("--pipeline_chunk", type=int, default=1,
+                   help="within a pipelined group, the reconstructions of "
+                        "this many same-shape images come to the host in "
+                        "one copy (device programs stay per-image: batched "
+                        "convolutions would change the bits); 1 disables")
+    p.add_argument("--wire_chunk", type=int, default=1,
+                   help="batch only the host sync points (stacked buffer/"
+                        "index fetches, stacked symbol uploads) of this "
+                        "many same-shape images; device programs stay "
+                        "per-image. 1 disables")
     p.add_argument("--no_lpips", action="store_true",
                    help="skip the per-image LPIPS column")
     p.add_argument("--lpips_weights", default=None,
@@ -103,14 +102,7 @@ def parse_args(argv=None):
                         "Mutually exclusive with --pipeline/--tile_*")
     p.add_argument("--device", default=None,
                    help="torch device; the card (cuda) unless named")
-    # Not ported yet: refused unless left at their defaults.
-    p.add_argument("--scalar_rans", action="store_true")
-    p.add_argument("--coder_threads", type=int, default=1)
-    p.add_argument("--pipeline_chunk", type=int, default=1)
-    p.add_argument("--wire_chunk", type=int, default=1)
-    a = p.parse_args(argv)
-    refuse_unported(a)
-    return a
+    return p.parse_args(argv)
 
 
 def make_lpips_metric(a, device, logger):
@@ -152,7 +144,9 @@ def main(argv=None):
 
     logger.info("Restoring %s", a.checkpoint_dir)
     config, state = resolve_eval_checkpoint(a.checkpoint_dir)
-    codec = Codec(config, state, device=device)
+    codec = Codec(config, state, device=device, vectorize=not a.scalar_rans,
+                  coder_threads=a.coder_threads,
+                  pipeline_chunk=a.pipeline_chunk, wire_chunk=a.wire_chunk)
     if not a.reconstruct:  # -rc codes nothing, so it needs no tables
         logger.info("Building prior probability tables...")
         codec.build_tables()

@@ -5,10 +5,12 @@ counterpart of the JAX package's `cli/decompress.py`.
         -i compressed/ -o recon/ [--pipeline 8] [--tile_latents 64] \\
         [--device cpu]
 
-Takes one `.hfc` file or a directory of them (container v1) and writes one
-PNG per file. Decoding takes the device decoder wherever `Codec.decompress`
-would; `--pipeline N` decodes groups of N through `decompress_many`. Runs
-on the card unless `--device` names another device.
+Takes one `.hfc` file or a directory of them (container v1 and the
+lane-sharded v2 both load transparently: the file says which) and writes
+one PNG per file. Decoding takes the device decoder wherever
+`Codec.decompress` would; `--pipeline N` decodes groups of N through
+`decompress_many`. Runs on the card unless `--device` names another
+device.
 """
 
 import argparse

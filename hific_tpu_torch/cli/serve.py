@@ -2,7 +2,9 @@
 with the model warm; counterpart of the JAX package's `cli/serve.py`.
 
     python -m hific_tpu_torch.cli.serve -ckpt params.npz \\
-        [--host 127.0.0.1] [--port 8080] [--max_batch 8] [--device cpu]
+        [--host 127.0.0.1] [--port 8080] [--max_batch 8] \\
+        [--pipeline_chunk 4] [--wire_chunk 1] [--coder_threads 1] \\
+        [--device cpu]
 
     POST /compress     image bytes (PNG, JPEG, ...) -> `.hfc` bytes
                        (X-Bpp and X-Shape response headers)
@@ -17,11 +19,14 @@ that touches the codec after it is built: it waits up to
 `--batch_window_ms` after the first queued job for more, then takes every
 queued job of the head's kind, up to `--max_batch`, into one
 `compress_many` or `decompress_many` call, so the device coders code a
-batch of requests in one kernel launch. A batch that fails is retried one
-job at a time, so one bad request fails alone. The dispatcher makes the
-codec's device its current CUDA device when it starts (PyTorch keeps the
-current device per thread). A bad request is answered with 400. Runs on
-the card unless `--device` names another device.
+batch of requests in one kernel launch. The codec takes the JAX package's
+daemon defaults: `--pipeline_chunk 4` (the images of up to four
+same-shape decompress requests of a batch copied to the host together),
+`--wire_chunk 1`, `--coder_threads 1`. A batch that fails is
+retried one job at a time, so one bad request fails alone. The dispatcher
+makes the codec's device its current CUDA device when it starts (PyTorch
+keeps the current device per thread). A bad request is answered with 400.
+Runs on the card unless `--device` names another device.
 """
 
 import argparse
@@ -33,7 +38,6 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import torch
 
-from hific_tpu_torch.cli.compress import refuse_unported
 from hific_tpu_torch.codec import Codec
 from hific_tpu_torch.entropy.container import dumps_compressed, loads_compressed
 from hific_tpu_torch.runtime import resolve_device
@@ -66,15 +70,20 @@ def parse_args(argv=None):
                         "this many ms so that concurrent requests join one "
                         "batch (0 dispatches at once; the window closes "
                         "early once max_batch jobs are queued)")
+    p.add_argument("--coder_threads", type=int, default=1,
+                   help="lane-shard each rANS payload into this many "
+                        "streams coded in host threads (container v2)")
+    p.add_argument("--pipeline_chunk", type=int, default=4,
+                   help="within a batch, the reconstructions of this "
+                        "many same-shape images come to the host in one "
+                        "copy; 1 disables")
+    p.add_argument("--wire_chunk", type=int, default=1,
+                   help="on the host coder's paths, one copy to the host "
+                        "for this many same-shape images and their rANS "
+                        "calls in this many threads; 1 disables")
     p.add_argument("--device", default=None,
                    help="torch device; the card (cuda) unless named")
-    # Not ported yet: refused unless left at their defaults.
-    p.add_argument("--coder_threads", type=int, default=1)
-    p.add_argument("--pipeline_chunk", type=int, default=1)
-    p.add_argument("--wire_chunk", type=int, default=1)
-    a = p.parse_args(argv)
-    refuse_unported(a)
-    return a
+    return p.parse_args(argv)
 
 
 class _Job:
@@ -92,8 +101,12 @@ class CodecService:
     """A warm codec behind one dispatcher thread, and the counters."""
 
     def __init__(self, config, state, device=None, shape_bucket=None,
-                 tile_latents=None, max_batch=8, batch_window_ms=0.0):
-        self.codec = Codec(config, state, device=resolve_device(device))
+                 tile_latents=None, max_batch=8, batch_window_ms=0.0,
+                 coder_threads=1, pipeline_chunk=1, wire_chunk=1):
+        self.codec = Codec(config, state, device=resolve_device(device),
+                           coder_threads=coder_threads,
+                           pipeline_chunk=pipeline_chunk,
+                           wire_chunk=wire_chunk)
         self.codec.build_tables()
         self.shape_bucket = shape_bucket
         self.tile_latents = tile_latents
@@ -308,7 +321,10 @@ def make_server(a, logger=None):
                            shape_bucket=a.shape_bucket,
                            tile_latents=a.tile_latents,
                            max_batch=a.max_batch,
-                           batch_window_ms=a.batch_window_ms)
+                           batch_window_ms=a.batch_window_ms,
+                           coder_threads=a.coder_threads,
+                           pipeline_chunk=a.pipeline_chunk,
+                           wire_chunk=a.wire_chunk)
 
     class _Server(ThreadingHTTPServer):
         def server_close(self):

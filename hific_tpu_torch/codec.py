@@ -19,9 +19,10 @@ code where the symbols are, a batch of streams per kernel launch. On a CUDA
 codec every batch-1 input, tiled or not, takes the device encoder
 (`compress`; `compress_many` codes the y and z streams of all its images in
 one launch) and every batch-1 payload the device decoder (`decompress`,
-`decompress_many`: the y streams of all of them in one launch). A payload
-of a larger batch takes the host coder, as does a CPU codec unless asked
-(`device_encode=True`, `device_decode=True` run the kernels' plain
+`decompress_many`: the y streams of all of them in one launch), where the
+streams are vectorized and unsharded. A payload of a larger batch, a
+sharded or a scalar one takes the host coder, as does a CPU codec unless
+asked (`device_encode=True`, `device_decode=True` run the kernels' plain
 versions); `device_encode=False` / `device_decode=False` ask for the host
 coder. The JAX package's `compress` takes its host coder by default, a
 choice made for its accelerator's wire. The streams that overrun a device
@@ -39,9 +40,15 @@ The spatially partitioned codec (`compress_spatial`, `decompress_spatial`)
 runs one image's encoder and generator in row bands over a mesh of
 devices (`parallel/spatial.py`), with a replica of the model on each
 distinct device; the hyper stages, the one shared `synth_stats` and the
-coders are `compress`'s and `decompress`'s, on the codec's device. Not
-ported yet: `pipeline_chunk`, `wire_chunk` and the packed host-coder
-wire, and `coder_threads` (container v2).
+coders are `compress`'s and `decompress`'s, on the codec's device.
+
+The coders' options are the JAX package's (`Codec.__init__`): `vectorize`
+(False: scalar streams), `coder_threads` (lane-sharded streams, container
+v2), and in the batch codec `pipeline_chunk` (one copy of several
+same-shape reconstructions to the host) and `wire_chunk` (the host coder's
+copies and native calls in chunks and threads). The device coders take
+vectorized, unsharded, batch-1 streams; everything else takes the host
+coder.
 """
 
 from typing import Callable, NamedTuple, Optional, Tuple
@@ -55,6 +62,7 @@ from hific_tpu_torch.entropy.container import (
     load_compressed,
     save_compressed,
 )
+from hific_tpu_torch.entropy.coding import map_threads
 from hific_tpu_torch.entropy.device_decode import (
     DecodeJob,
     decode_scan_many,
@@ -96,10 +104,6 @@ ENC_SCALE = 16
 _codec_numerics = fp32_numerics(deterministic=True)
 
 
-def _numpy(t: torch.Tensor, dtype) -> np.ndarray:
-    return t.cpu().numpy().astype(dtype)
-
-
 def _lanes(t: torch.Tensor) -> torch.Tensor:
     """(1, C, H, W) -> (H * W, C) int32: channels as lanes, positions in
     row-major order (the host coder's lane layout)."""
@@ -108,8 +112,8 @@ def _lanes(t: torch.Tensor) -> torch.Tensor:
 
 
 def _output(z_encoded, y_encoded, hyper_spatial, spatial_shape, hyper_coding,
-            latent_coding, batch, hyper_bits, latent_bits, compute_dtype
-            ) -> CompressionOutput:
+            latent_coding, batch, hyper_bits, latent_bits, compute_dtype,
+            sharded: bool) -> CompressionOutput:
     n_pixels = float(np.prod(spatial_shape))
     return CompressionOutput(
         hyperlatents_encoded=z_encoded,
@@ -119,6 +123,7 @@ def _output(z_encoded, y_encoded, hyper_spatial, spatial_shape, hyper_coding,
         hyper_coding_shape=tuple(hyper_coding),
         latent_coding_shape=tuple(latent_coding),
         batch_shape=batch,
+        sharded=sharded,
         hyperlatent_bits=hyper_bits,
         latent_bits=latent_bits,
         total_bits=hyper_bits + latent_bits,
@@ -127,6 +132,18 @@ def _output(z_encoded, y_encoded, hyper_spatial, spatial_shape, hyper_coding,
         total_bpp=(hyper_bits + latent_bits) / n_pixels,
         compute_dtype=compute_dtype,
     )
+
+
+def _runs(items, key, limit: int) -> list:
+    """`items` in order, cut into runs of consecutive items with the same
+    `key`, at most `limit` a run."""
+    runs = []
+    for item in items:
+        if runs and len(runs[-1]) < limit and key(runs[-1][0]) == key(item):
+            runs[-1].append(item)
+        else:
+            runs.append([item])
+    return runs
 
 
 def _split_streams(fetched: np.ndarray, jobs):
@@ -140,13 +157,25 @@ def _split_streams(fetched: np.ndarray, jobs):
     return parts, words[at:]
 
 
-class _StagedEncode(NamedTuple):
-    """One image's device work up to its symbols, enqueued: the y and z
-    jobs of the encode kernel at the default caps, and the Shannon bits."""
-    jobs: tuple          # (y EncodeJob, z EncodeJob)
-    bits: torch.Tensor   # int32 view of float32 (hyperlatent, latent)
-    z_chw: tuple
-    y_channels: int
+class _Staged(NamedTuple):
+    """One input's device work up to its symbols, enqueued: NCHW symbol
+    planes and coding indices on the device, its (hyperlatent, latent)
+    Shannon bits as float32, and the image's (H, W)."""
+    z_sym: torch.Tensor   # int16
+    y_sym: torch.Tensor   # int16
+    idx: torch.Tensor     # uint8
+    bits: torch.Tensor    # float32 (2,)
+    spatial_shape: tuple
+
+
+class _Symbols(NamedTuple):
+    """A staged input's symbols on the host: NCHW int32 planes and the
+    bits."""
+    z_sym: np.ndarray
+    y_sym: np.ndarray
+    idx: np.ndarray
+    hyper_bits: float
+    latent_bits: float
 
 
 class Codec:
@@ -154,9 +183,32 @@ class Codec:
     compute dtype (`Config.dtype`) as the JAX package's `Codec`. A DLMM
     or `sample_noise` config is refused: the JAX package has no compress
     path for either (the DLMM prior is a training-only estimate, and its
-    codec draws no generator noise)."""
+    codec draws no generator noise).
 
-    def __init__(self, config: Config, state_dict, device=None):
+    vectorize: code the streams with the vectorized coder (one lane a
+    channel); False writes scalar streams (one lane, the smallest stream,
+    serial; host coder only), which only a codec with vectorize=False
+    decodes.
+    coder_threads: above 1, lane-shard each host-coded payload into that
+    many streams coded in host threads (container v2; a few words more a
+    shard). The device coders take unsharded streams only. Decoding reads
+    the shard count from the file, so any codec decodes any v1 or v2 file.
+    pipeline_chunk: in `decompress_many`, the reconstructions of this many
+    consecutive same-shape images come to the host in one copy. Their
+    device programs run image by image, as those of `compress_many` do
+    whatever the chunk: batched convolutions do not give an image the bits
+    it gets alone, and the bytes and pixels must be the per-image ones.
+    The device encoder already fetches once a call.
+    wire_chunk: on the host-coder paths of `compress_many` /
+    `decompress_many`, one stacked device-to-host copy (the symbols to
+    code, or the coding indices to decode with) per this many consecutive
+    same-shape images, and their native rANS calls in a pool of this many
+    host threads, closed before the call returns. The device coders'
+    paths already fetch once per call: there it changes nothing."""
+
+    def __init__(self, config: Config, state_dict, device=None,
+                 vectorize: bool = True, coder_threads: int = 1,
+                 pipeline_chunk: int = 1, wire_chunk: int = 1):
         refused = [name for name, on in (
             ("use_latent_mixture_model", config.use_latent_mixture_model),
             ("sample_noise", config.sample_noise)) if on]
@@ -164,6 +216,13 @@ class Codec:
             raise ValueError(f"no codec for a config with {' and '.join(refused)}"
                              f": the JAX package has no compress path for it "
                              f"either")
+        self.vectorize = bool(vectorize)
+        self.coder_threads = max(1, int(coder_threads))
+        self.pipeline_chunk = max(1, int(pipeline_chunk))
+        self.wire_chunk = max(1, int(wire_chunk))
+        if self.coder_threads > 1 and not self.vectorize:
+            raise ValueError("coder_threads > 1 shards the vectorized coder's "
+                             "lanes: it needs vectorize=True")
         self.device = resolve_device(device)
         self.config = config
         model = HiFiC(config)
@@ -231,76 +290,102 @@ class Codec:
 
     @_codec_numerics
     @torch.inference_mode()
-    def _symbols(self, x: torch.Tensor, encode: Optional[Callable] = None):
-        """Model input -> numpy (z_sym, y_sym, idx) in NCHW int32 and the
-        hyperlatent and latent Shannon bits."""
+    def _stage(self, x: torch.Tensor, spatial_shape,
+               encode: Optional[Callable] = None) -> _Staged:
+        """Enqueue one model input's device work up to its symbols: the
+        encoder front (latents from `encode` when given), the one shared
+        synth_stats and the latent symbols. Blocks on nothing."""
         y, z_sym, hyper_bits = self._front(x, encode)
         mu, sigma, idx = self.model.synth_stats(z_sym, self.scale_table)
         y_sym, latent_bits = self.model.latent_symbols(y, mu, sigma)
-        return (_numpy(z_sym, np.int32), _numpy(y_sym, np.int32),
-                _numpy(idx, np.int32), float(hyper_bits), float(latent_bits))
+        return _Staged(z_sym, y_sym, idx,
+                       torch.stack([hyper_bits.float(), latent_bits.float()]),
+                       spatial_shape)
+
+    def _fetch_symbols(self, staged) -> list:
+        """The host copy of staged inputs' symbols: one device-to-host copy
+        per `wire_chunk` consecutive inputs of one shape, all enqueued
+        before the first wait. Returns a `_Symbols` a staged input."""
+        fetches = []
+        for run in _runs(staged, lambda s: (s.z_sym.shape, s.y_sym.shape),
+                         self.wire_chunk):
+            fetches.append((run, Fetch(torch.cat([
+                t for s in run for t in (
+                    s.z_sym.flatten().to(torch.int32),
+                    s.y_sym.flatten().to(torch.int32),
+                    s.idx.flatten().to(torch.int32),
+                    s.bits.view(torch.int32))]))))
+        symbols = []
+        for run, fetch in fetches:
+            words, at = fetch.result(), 0
+            for s in run:
+                planes = []
+                for t in (s.z_sym, s.y_sym, s.idx):
+                    planes.append(words[at:at + t.numel()].reshape(t.shape))
+                    at += t.numel()
+                hyper_bits, latent_bits = words[at:at + 2].view(np.float32)
+                at += 2
+                symbols.append(_Symbols(*planes, float(hyper_bits),
+                                        float(latent_bits)))
+        return symbols
+
+    def _symbols(self, x: torch.Tensor, encode: Optional[Callable] = None
+                 ) -> _Symbols:
+        """Model input -> numpy (z_sym, y_sym, idx) in NCHW int32 and the
+        hyperlatent and latent Shannon bits."""
+        return self._fetch_symbols(
+            [self._stage(x, tuple(x.shape[2:]), encode)])[0]
 
     def encode_symbols(self, x):
         """Image -> numpy (z_sym, y_sym, idx) in NCHW int32, the hyperlatent
         and latent Shannon bits, and the image's (H, W)."""
         x = self._model_input(x)
-        return self._symbols(x) + (tuple(int(s) for s in x.shape[2:]),)
+        return tuple(self._symbols(x)) + (tuple(int(s) for s in x.shape[2:]),)
 
-    def _host_compress(self, x: torch.Tensor, spatial_shape,
-                       encode: Optional[Callable] = None
-                       ) -> CompressionOutput:
-        """Host rANS coding of the model input's symbol planes."""
-        z_sym, y_sym, idx, hyper_bits, latent_bits = self._symbols(
-            x, encode)
-        z_encoded, hyper_coding_shape = self.factorized.compress_symbols(z_sym)
+    def _host_encode_row(self, symbols: _Symbols, spatial_shape
+                         ) -> CompressionOutput:
+        """One input's host rANS coding: the vectorized, sharded (container
+        v2) or scalar coder, as the codec is set. Thread-safe: the native
+        coder keeps no state between calls."""
+        z_encoded, hyper_coding_shape = self.factorized.compress_symbols(
+            symbols.z_sym, self.vectorize, self.coder_threads)
         y_encoded, latent_coding_shape = self.conditional.compress_symbols(
-            y_sym, idx)
-        return _output(z_encoded, y_encoded, z_sym.shape[2:], spatial_shape,
-                       hyper_coding_shape, latent_coding_shape,
-                       z_sym.shape[0], hyper_bits, latent_bits,
-                       self.config.dtype)
+            symbols.y_sym, symbols.idx, self.vectorize, self.coder_threads)
+        return _output(z_encoded, y_encoded, symbols.z_sym.shape[2:],
+                       spatial_shape, hyper_coding_shape, latent_coding_shape,
+                       symbols.z_sym.shape[0], symbols.hyper_bits,
+                       symbols.latent_bits, self.config.dtype,
+                       self.coder_threads > 1)
+
+    def _host_compress(self, staged) -> list:
+        """The host coder over staged inputs: their symbols fetched
+        `wire_chunk` at a time, each input coded in a pool of `wire_chunk`
+        threads."""
+        return map_threads(
+            lambda item: self._host_encode_row(*item),
+            zip(self._fetch_symbols(staged),
+                [s.spatial_shape for s in staged]),
+            self.wire_chunk)
 
     # ------------------------------------------------------------------ #
     # The device encoder
 
-    @staticmethod
-    def _device_encode_eligible(x: torch.Tensor) -> bool:
-        """Batch 1: the lane layout of the device coders (channels as lanes
-        over positions)."""
-        return int(x.shape[0]) == 1
+    def _device_encode_eligible(self, x: torch.Tensor) -> bool:
+        """Batch 1 (the lane layout of the device coders: channels as lanes
+        over positions), unsharded vectorized streams."""
+        return (self.vectorize and self.coder_threads == 1
+                and int(x.shape[0]) == 1)
 
     def _use_device_encode(self, x: torch.Tensor,
                            device_encode: Optional[bool]) -> bool:
         eligible = self._device_encode_eligible(x)
         if device_encode and not eligible:
             raise ValueError("device_encode=True but the input is not "
-                             "eligible for the device encoder (batch 1)")
+                             "eligible for the device encoder (batch 1, "
+                             "vectorize, coder_threads == 1)")
         if device_encode is None:
             return self.device.type == "cuda" and eligible
         return device_encode
-
-    @_codec_numerics
-    @torch.inference_mode()
-    def _stage_device_compress(self, x: torch.Tensor,
-                               encode: Optional[Callable] = None
-                               ) -> _StagedEncode:
-        """Enqueue one model input's device work up to the symbols: front
-        (latents from `encode` when given) -> the one shared synth_stats
-        -> latent symbols, laid out for the encode kernel. Blocks on
-        nothing."""
-        y, z_sym, hyper_bits = self._front(x, encode)
-        mu, sigma, idx = self.model.synth_stats(z_sym, self.scale_table)
-        y_sym, latent_bits = self.model.latent_symbols(y, mu, sigma)
-        (_, cy, hy, wy), (_, cz, hz, wz) = y_sym.shape, z_sym.shape
-        z_idx = torch.arange(cz, dtype=torch.int32, device=x.device)
-        y_tables, z_tables = self._rans_tables
-        jobs = (EncodeJob(_lanes(y_sym), _lanes(idx), y_tables,
-                          *default_caps(hy * wy, cy)),
-                EncodeJob(_lanes(z_sym), z_idx.expand(hz * wz, cz).contiguous(),
-                          z_tables, *default_caps(hz * wz, cz, Z_SPILL_BITS)))
-        bits = torch.stack([hyper_bits.float(),
-                            latent_bits.float()]).view(torch.int32)
-        return _StagedEncode(jobs, bits, (cz, hz, wz), cy)
 
     @staticmethod
     @torch.inference_mode()
@@ -312,14 +397,27 @@ class Codec:
         return Fetch(torch.cat([t for stream, _, counts in outs
                                  for t in (counts, stream)] + list(extra)))
 
-    def _device_compress(self, staged, spatial_shapes) -> list:
-        """The y and z streams of every staged image in one encode launch.
+    def _encode_jobs(self, item: _Staged) -> tuple:
+        """A staged batch-1 input's (y, z) jobs of the encode kernel at the
+        default caps."""
+        (_, cy, hy, wy), (_, cz, hz, wz) = item.y_sym.shape, item.z_sym.shape
+        z_idx = torch.arange(cz, dtype=torch.int32, device=item.z_sym.device)
+        y_tables, z_tables = self._rans_tables
+        return (EncodeJob(_lanes(item.y_sym), _lanes(item.idx), y_tables,
+                          *default_caps(hy * wy, cy)),
+                EncodeJob(_lanes(item.z_sym),
+                          z_idx.expand(hz * wz, cz).contiguous(), z_tables,
+                          *default_caps(hz * wz, cz, Z_SPILL_BITS)))
+
+    def _device_compress(self, staged) -> list:
+        """The y and z streams of every staged input in one encode launch.
         The streams that overran their buffers are coded again, in one
         more launch, with caps at the demand the kernel reported (writes
         past a cap are dropped but counted), so it writes every word."""
-        jobs = [job for item in staged for job in item.jobs]
+        jobs = [job for item in staged for job in self._encode_jobs(item)]
         streams, bits = _split_streams(self._encode(
-            jobs, [item.bits for item in staged]).result(), jobs)
+            jobs, [item.bits.view(torch.int32) for item in staged]).result(),
+            jobs)
         bits = bits.view(np.float32).reshape(-1, 2)
         overran = [k for k, (w, job) in enumerate(zip(streams, jobs))
                    if w[0] > job.spill_cap or w[1] > job.lens_cap]
@@ -339,13 +437,13 @@ class Codec:
         encoded = [w[3:3 + 2 * job.sym_l.shape[1] + int(w[0])].copy()
                    for w, job in zip(streams, jobs)]
         outputs = []
-        for i, (item, spatial_shape) in enumerate(zip(staged, spatial_shapes)):
-            cz, hz, wz = item.z_chw
+        for i, item in enumerate(staged):
+            _, cz, hz, wz = item.z_sym.shape
             hyper_bits, latent_bits = (float(b) for b in bits[i])
             outputs.append(_output(
-                encoded[2 * i + 1], encoded[2 * i], (hz, wz), spatial_shape,
-                (cz, 1, 1), (item.y_channels, 1, 1), 1, hyper_bits,
-                latent_bits, self.config.dtype))
+                encoded[2 * i + 1], encoded[2 * i], (hz, wz),
+                item.spatial_shape, (cz, 1, 1), (item.y_sym.shape[1], 1, 1),
+                1, hyper_bits, latent_bits, self.config.dtype, False))
         return outputs
 
     def compress(self, x, shape_bucket: Optional[int] = None,
@@ -361,10 +459,11 @@ class Codec:
         whole-image encode's when halo_image is at least the encoder's
         one-sided receptive extent (49 px; default 64).
         device_encode: code on the device. By default a CUDA codec does for
-        a batch-1 input, tiled or not, and a CPU codec takes the host
-        coder; True codes on any device (the kernel's plain version on the
-        CPU) and raises on a larger batch; False takes the host coder. The
-        bytes are the same either way."""
+        a batch-1 input, tiled or not, when its streams are vectorized and
+        unsharded, and a CPU codec takes the host coder; True codes on any
+        device (the kernel's plain version on the CPU) and raises on an
+        input it does not take; False takes the host coder. The bytes are
+        the same either way."""
         if not self._tables_built:
             self.build_tables()
         spatial_shape = tuple(int(s) for s in np.shape(x)[1:3])
@@ -378,40 +477,40 @@ class Codec:
                         device_encode: Optional[bool]) -> CompressionOutput:
         """The model input's `.hfc` payload, on the device encoder or the
         host coder as `compress` chooses."""
-        if self._use_device_encode(x, device_encode):
-            return self._device_compress(
-                [self._stage_device_compress(x, encode)], [spatial_shape])[0]
-        return self._host_compress(x, spatial_shape, encode)
+        on_device = self._use_device_encode(x, device_encode)
+        staged = [self._stage(x, spatial_shape, encode)]
+        if on_device:
+            return self._device_compress(staged)[0]
+        return self._host_compress(staged)[0]
 
     def compress_many(self, images, shape_bucket: Optional[int] = None,
                       device_encode: Optional[bool] = None) -> list:
-        """Batch compression. On a CUDA codec every batch-1 image takes the
-        device encoder: each image's device work is enqueued, then the y
-        and z streams of all of them are coded in one launch and fetched in
-        one buffer, the streams whole. An image of a larger batch
-        takes the host coder, as in the JAX package: its stream's lanes are
-        every (channel, pixel) of a position, a layout the device coders do
-        not have. device_encode: True takes the device encoder on any
-        device (its plain version on the CPU) and raises on a larger batch;
-        False takes the host coder. shape_bucket: as in `compress`."""
+        """Batch compression, in order. Every image's device work is
+        enqueued first, image by image. Then the images the
+        device encoder takes (on a CUDA codec every batch-1 image of a
+        vectorized, unsharded codec) have their y and z streams coded in
+        one launch and fetched in one buffer; the rest take the host coder
+        (`wire_chunk`), as in the JAX package: a larger batch's stream has
+        every (channel, pixel) of a position as lanes, a layout the device
+        coders do not have. device_encode: True takes the device encoder
+        on any device (its plain version on the CPU) and raises on an
+        image it does not take; False takes the host coder. shape_bucket:
+        as in `compress`."""
         if not self._tables_built:
             self.build_tables()
-        staged = []
+        staged, on_device = [], []
         for image in images:
-            spatial_shape = tuple(int(s) for s in np.shape(image)[1:3])
             x = self._model_input(image, shape_bucket)
-            if self._use_device_encode(x, device_encode):
-                staged.append((spatial_shape, self._stage_device_compress(x)))
-            else:
-                staged.append((spatial_shape, x))
-        on_device = [k for k, (_, item) in enumerate(staged)
-                     if isinstance(item, _StagedEncode)]
-        results = dict(zip(on_device, self._device_compress(
-            [staged[k][1] for k in on_device],
-            [staged[k][0] for k in on_device]) if on_device else []))
-        return [results[k] if k in results
-                else self._host_compress(item, spatial_shape)
-                for k, (spatial_shape, item) in enumerate(staged)]
+            on_device.append(self._use_device_encode(x, device_encode))
+            staged.append(self._stage(
+                x, tuple(int(s) for s in np.shape(image)[1:3])))
+        device = [k for k, on in enumerate(on_device) if on]
+        host = [k for k, on in enumerate(on_device) if not on]
+        results = dict(zip(device, self._device_compress(
+            [staged[k] for k in device]) if device else []))
+        results.update(zip(host, self._host_compress(
+            [staged[k] for k in host])))
+        return [results[k] for k in range(len(staged))]
 
     # ------------------------------------------------------------------ #
     # Decoding
@@ -426,8 +525,9 @@ class Codec:
             self.build_tables()
         self._check_compute_dtype(out)
         z_np, mu, idx = self._hyper_stats(out)
-        y_np = self.conditional.decompress_symbols(out.latents_encoded,
-                                                   _numpy(idx, np.int32))
+        y_np = self.conditional.decompress_symbols(
+            out.latents_encoded, idx.cpu().numpy().astype(np.int32),
+            self.vectorize, out.sharded)
         return z_np, y_np, mu
 
     def _hyper_stats(self, out: CompressionOutput):
@@ -435,7 +535,7 @@ class Codec:
         the same synth_stats the encoder took its indices from."""
         z_np = self.factorized.decompress_symbols(
             out.hyperlatents_encoded, out.batch_shape,
-            out.hyperlatent_spatial_shape)
+            out.hyperlatent_spatial_shape, self.vectorize, out.sharded)
         z_sym = torch.from_numpy(z_np).to(self.device, torch.int16).contiguous(
             memory_format=torch.channels_last)
         mu, _, idx = self.model.synth_stats(z_sym, self.scale_table)
@@ -456,12 +556,37 @@ class Codec:
             recon = recon.float()
         return recon.permute(0, 2, 3, 1)
 
-    def _host_latents(self, out: CompressionOutput) -> torch.Tensor:
-        """Host rANS of both streams -> the quantized latents y + mu on
-        the device."""
-        _, y_np, mu = self.decode_symbols(out)
-        return torch.from_numpy(y_np).to(self.device, torch.float32).contiguous(
-            memory_format=torch.channels_last) + mu
+    def _host_latents(self, outs) -> list:
+        """The host coder over payloads -> the quantized latents y + mu of
+        each on the device. Every payload's z decode and synth_stats are
+        enqueued first; then per `wire_chunk` consecutive payloads of one
+        shape one copy of their coding indices to the host, their y streams
+        decoded in a pool of `wire_chunk` threads, and one upload of their
+        symbols."""
+        stats = [self._hyper_stats(o) for o in outs]
+        runs = _runs(list(zip(outs, stats)), lambda item: item[1][2].shape,
+                     self.wire_chunk)
+        fetches = [Fetch(torch.cat([idx.flatten() for _, (_, _, idx) in run]))
+                   for run in runs]
+        y_hats = []
+        for run, fetch in zip(runs, fetches):
+            idx_all, at, jobs = fetch.result(), 0, []
+            for out, (_, _, idx) in run:
+                jobs.append((out, idx_all[at:at + idx.numel()].reshape(
+                    idx.shape).astype(np.int32)))
+                at += idx.numel()
+            y_np = map_threads(
+                lambda job: self.conditional.decompress_symbols(
+                    job[0].latents_encoded, job[1], self.vectorize,
+                    job[0].sharded), jobs, self.wire_chunk)
+            y_all = torch.from_numpy(np.concatenate(
+                [y.reshape(-1) for y in y_np])).to(self.device, torch.float32)
+            at = 0
+            for (_, (_, mu, _)), y in zip(run, y_np):
+                y_hats.append(y_all[at:at + y.size].view(y.shape).contiguous(
+                    memory_format=torch.channels_last) + mu)
+                at += y.size
+        return y_hats
 
     def _device_latents(self, outs):
         """Enqueue the device decode of a batch of payloads: per image the
@@ -502,10 +627,11 @@ class Codec:
                 f"computes in {self.config.dtype} (Config.dtype), whose "
                 f"coding indices may differ")
 
-    @staticmethod
-    def _device_decode_eligible(out: CompressionOutput) -> bool:
-        """Batch 1 (unsharded, which is all the port reads)."""
-        return int(out.batch_shape) == 1
+    def _device_decode_eligible(self, out: CompressionOutput) -> bool:
+        """Batch 1, an unsharded stream, and a vectorized codec (a scalar
+        stream is no lane layout of the device decoder)."""
+        return (self.vectorize and not out.sharded
+                and int(out.batch_shape) == 1)
 
     @staticmethod
     def _check_bad(bad: Optional[Fetch]) -> None:
@@ -522,7 +648,8 @@ class Codec:
         if device_decode and not eligible:
             raise ValueError("device_decode=True but a payload is not "
                              "eligible: the device decoder covers "
-                             "single-image payloads")
+                             "single-image, unsharded payloads of a "
+                             "vectorized codec")
         if device_decode is None:
             return eligible and self.device.type == "cuda"
         return device_decode
@@ -536,10 +663,11 @@ class Codec:
         latent tiles of this size with `halo_latents` of context, its
         output assembled on the host (on the H100 this does not lower the
         peak: see ROADMAP.md section 1). device_decode: rANS-decode the
-        latents on the device; by default a CUDA codec does for a batch-1
-        payload, tiled or not, and a CPU codec takes the host coder; True
-        decodes on any device (the kernel's plain version on the CPU) and
-        raises on a larger batch. The result is the same either way."""
+        latents on the device; by default a CUDA codec does for a payload
+        it takes (batch 1, unsharded, a vectorized codec), tiled or not,
+        and a CPU codec takes the host coder; True decodes on any device
+        (the kernel's plain version on the CPU) and raises on a payload it
+        does not take. The result is the same either way."""
         return self.decompress_many(
             [out], as_uint8=as_uint8, tile_latents=tile_latents,
             halo_latents=halo_latents, device_decode=device_decode)[0]
@@ -551,13 +679,16 @@ class Codec:
                         tile_latents: Optional[int] = None,
                         halo_latents: int = 16,
                         device_decode: Optional[bool] = None) -> list:
-        """Batch decompression. On the device decoder (chosen as in
-        `decompress`) the y streams of all payloads are decoded in one
-        launch, and every image's generation and copy to the host are
-        enqueued before the host waits for the first. as_numpy=False
-        returns NHWC tensors on the codec's device (after one wait for the
-        kernel's index checks). tile_latents: each payload's generator run
-        on latent tiles as in `decompress` (numpy results)."""
+        """Batch decompression, in order. On the device decoder (chosen as
+        in `decompress`) the y streams of all payloads are decoded in one
+        launch, otherwise on the host coder (`wire_chunk`); then every
+        image's generation, and per `pipeline_chunk` consecutive payloads
+        of one shape one copy of their images to the host, are enqueued
+        before the host waits for the first.
+        as_numpy=False returns NHWC tensors on the codec's device (after
+        one wait for the kernel's index checks). tile_latents: each
+        payload's generator run on latent tiles as in `decompress` (numpy
+        results)."""
         if not self._tables_built:
             self.build_tables()
         if not outs:
@@ -569,21 +700,28 @@ class Codec:
             y_hats, bad = self._device_latents(outs)
             bad = Fetch(bad)
         else:
-            y_hats = [self._host_latents(o) for o in outs]
+            y_hats = self._host_latents(outs)
         if tile_latents is not None:
             imgs = [self._tiled_generate(y, o.spatial_shape, tile_latents,
                                          halo_latents, as_uint8)
                     for o, y in zip(outs, y_hats)]
             self._check_bad(bad)
             return imgs
+        # Image by image: at a batch of several, cuDNN's convolutions (and
+        # oneDNN's on the CPU) do not give every image the bits it gets
+        # alone, in either dtype (PERF.md section 6,
+        # `scripts/chunk_modes.py --layers`).
         imgs = [self._generate(y, o.spatial_shape, as_uint8)
                 for o, y in zip(outs, y_hats)]
         if not as_numpy:
             self._check_bad(bad)
             return imgs
-        fetches = [Fetch(img) for img in imgs]
+        fetches = [(run, Fetch(run[0] if len(run) == 1 else torch.cat(run)))
+                   for run in _runs(imgs, lambda t: t.shape,
+                                    self.pipeline_chunk)]
         self._check_bad(bad)
-        return [img.result() for img in fetches]
+        return [img for run, fetch in fetches for img in np.split(
+            fetch.result(), np.cumsum([t.shape[0] for t in run])[:-1])]
 
     # ------------------------------------------------------------------ #
     # The spatially partitioned codec: ONE image in row bands over a mesh
@@ -654,7 +792,7 @@ class Codec:
             y_hats, bad = self._device_latents([out])
             y_hat, bad = y_hats[0], Fetch(bad)
         else:
-            y_hat = self._host_latents(out)
+            y_hat = self._host_latents([out])[0]
         n = mesh.shape[DATA_AXIS]
         rows = int(y_hat.shape[2])
         if rows % n or (n > 1 and (rows // n) * (n - 1) < 2 * halo_latents):

@@ -113,3 +113,12 @@ def unflatten_message(arr: np.ndarray, shape) -> Message:
     ].astype(np.uint64)
     return Message(head.reshape(shape), stack=arr[2 * size :], cursor=0)
 
+
+
+def unflatten_message_scalar(arr: np.ndarray) -> Message:
+    """Deserialize a flat uint32 array into a one-lane (scalar) message."""
+    arr = np.asarray(arr, dtype=np.uint32)
+    if arr.size < 2:
+        raise ValueError("corrupt scalar stream: fewer than two head words")
+    head = (np.uint64(arr[0]) << np.uint64(32)) | np.uint64(arr[1])
+    return Message(np.array(head, dtype=np.uint64), stack=arr[2:], cursor=0)

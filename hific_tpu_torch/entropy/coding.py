@@ -1,22 +1,28 @@
 """Indexed rANS coding with unbounded-overflow escape codes (host-side).
 
-This package's own copy of the vectorized coder in the JAX package's
-`entropy/coding.py`; tests/test_torch_entropy.py holds its bytes equal to
-that coder's (golden hash included). The sharded (container v2) and scalar
-coders are not ported yet.
+This package's own copy of the JAX package's `entropy/coding.py`: the
+vectorized coder, the lane-sharded coder of container v2 and the scalar
+coder. tests/test_torch_entropy.py and tests/test_torch_coders.py hold
+their bytes equal to that package's (golden hash included).
 
 Codes integer symbol tensors against per-element CDF rows selected by an
 `indices` tensor. Values inside a row's tracked range [offset, offset + m -
 2) are ANS-coded with the row CDF; values outside emit the row's overflow
 code followed by a variable-length sequence of `OVERFLOW_WIDTH`-bit nibbles.
-One rANS lane per channel, looping over spatial positions (batch 1), or one
-lane per (C, H, W) element looping over the batch (batch > 1).
+The vectorized coder runs one rANS lane per channel, looping over spatial
+positions (batch 1), or one lane per (C, H, W) element looping over the
+batch (batch > 1). The sharded coder splits those lanes into K contiguous
+groups, each coded to a stream of its own in a host thread. The scalar
+coder is one lane over every element: the smallest stream, fully serial.
+Each runs the native `rans.cc` unless HIFIC_TPU_TORCH_NATIVE=0 selects the
+numpy version; both write the same bytes.
 
 Symbol lookup on decode is O(1) via precomputed inverse tables (cum_freq ->
 symbol, 2^precision entries per row). The encoder runs the position loop
 backward, pushing directly into the rANS state.
 """
 
+from concurrent.futures import ThreadPoolExecutor
 from typing import Tuple
 
 import numpy as np
@@ -271,4 +277,209 @@ def decode_indexed(encoded, indices, cdf, cdf_length, cdf_offset, precision,
                              precision, inverse_table)
     if n == 1:
         return _lane_unlayout(decoded, indices.shape).astype(np.int32)
+    return decoded.reshape(indices.shape).astype(np.int32)
+
+
+def map_threads(fn, items, threads: int) -> list:
+    """`fn` over `items` in order, in a pool of `threads` host threads that
+    is closed before this returns (in the caller's thread where `threads`
+    is 1). The native coder releases the interpreter lock while it runs."""
+    items = list(items)
+    if threads <= 1 or len(items) <= 1:
+        return [fn(item) for item in items]
+    with ThreadPoolExecutor(max_workers=min(threads, len(items))) as pool:
+        return list(pool.map(fn, items))
+
+
+# --------------------------------------------------------------------------
+# Lane-sharded coding (container v2 payloads).
+#
+# The rANS lanes (channels at batch 1) are independent except for the
+# shared spill stack, so K contiguous groups of them, each coded to a stream
+# of its own, code in parallel host threads with a few words of overhead a
+# shard. The payload:
+#
+#   uint32 K | uint32 len_0 .. len_{K-1} | stream_0 | ... | stream_{K-1}
+#
+# Each stream_k is the vectorized coder's stream of that lane group alone.
+# --------------------------------------------------------------------------
+
+
+def _lane_splits(n_lanes: int, shards: int):
+    """K = min(shards, n_lanes) contiguous lane groups. Integer arithmetic
+    only: the bounds are part of the persisted format (the decoder derives
+    them again from K), so they must not depend on float rounding."""
+    shards = max(1, min(int(shards), n_lanes))
+    bounds = [k * n_lanes // shards for k in range(shards + 1)]
+    return [(bounds[k], bounds[k + 1]) for k in range(shards)]
+
+
+def encode_indexed_sharded(symbols, indices, cdf, cdf_length, cdf_offset,
+                           precision, shards: int
+                           ) -> Tuple[np.ndarray, tuple]:
+    """Encode with the lanes sharded into `shards` streams, coded in a pool
+    of host threads. Returns (self-describing uint32 payload,
+    coding_shape)."""
+    symbols = np.asarray(symbols)
+    indices = np.asarray(indices)
+    cdf = np.asarray(cdf, dtype=np.uint32)
+    if symbols.shape != indices.shape:
+        raise ValueError(f"symbols {symbols.shape} and indices "
+                         f"{indices.shape} differ in shape")
+    _check_indices(indices, cdf.shape[0])
+    sym_l, idx_l, coding_shape = _layout(symbols, indices)
+    splits = _lane_splits(sym_l.shape[1], shards)
+
+    def one(span):
+        lo, hi = span
+        return _encode_layout(np.ascontiguousarray(sym_l[:, lo:hi]),
+                              np.ascontiguousarray(idx_l[:, lo:hi]),
+                              cdf, cdf_length, cdf_offset, precision)
+
+    streams = map_threads(one, splits, len(splits))
+    header = np.array([len(streams)] + [len(s) for s in streams], np.uint32)
+    return np.concatenate([header] + streams), coding_shape
+
+
+def decode_indexed_sharded(encoded, indices, cdf, cdf_length, cdf_offset,
+                           precision, inverse_table=None) -> np.ndarray:
+    """Decode a sharded payload. The shard count is read from the payload
+    and the lane split derived from it, so any codec decodes any shard
+    count."""
+    indices = np.asarray(indices)
+    cdf = np.asarray(cdf, dtype=np.uint32)
+    if inverse_table is None:
+        inverse_table = build_inverse_table(cdf, cdf_length, precision)
+    _check_indices(indices, cdf.shape[0])
+
+    encoded = np.asarray(encoded, np.uint32)
+    if encoded.size < 1:
+        raise ValueError("corrupt sharded payload: empty")
+    k = int(encoded[0])
+    n = indices.shape[0]
+    idx_l = _lane_layout(indices) if n == 1 else indices.reshape(n, -1)
+    n_lanes = idx_l.shape[1]
+    if not 1 <= k <= n_lanes:
+        raise ValueError(
+            f"corrupt sharded payload: shard count {k} not in [1, {n_lanes}]")
+    if encoded.size < 1 + k:
+        raise ValueError("corrupt sharded payload: truncated shard-length header")
+    lens = encoded[1:1 + k].astype(np.int64)
+    if 1 + k + int(lens.sum()) != encoded.size:
+        raise ValueError(
+            f"corrupt sharded payload: header promises {1 + k + int(lens.sum())}"
+            f" words, payload has {encoded.size}")
+    offs = np.concatenate([[1 + k], 1 + k + np.cumsum(lens)]).astype(np.int64)
+
+    def one(job):
+        (lo, hi), stream = job
+        return _decode_layout(stream, np.ascontiguousarray(idx_l[:, lo:hi]),
+                              cdf, cdf_length, cdf_offset, precision,
+                              inverse_table)
+
+    jobs = [(span, encoded[offs[i]:offs[i + 1]])
+            for i, span in enumerate(_lane_splits(n_lanes, k))]
+    decoded = np.concatenate(map_threads(one, jobs, k), axis=1)
+    if n == 1:
+        return _lane_unlayout(decoded, indices.shape).astype(np.int32)
+    return decoded.reshape(indices.shape).astype(np.int32)
+
+
+# --------------------------------------------------------------------------
+# The scalar coder: one lane over every element, in (N, C, H, W) order.
+# --------------------------------------------------------------------------
+
+
+def encode_indexed_scalar(symbols, indices, cdf, cdf_length, cdf_offset,
+                          precision) -> Tuple[np.ndarray, tuple]:
+    """Scalar encode of (N, C, H, W) int symbols. Returns (uint32 stream,
+    coding_shape (C, H, W)); the native coder runs it as one lane of N C H W
+    positions, the same pushes in the same order."""
+    symbols = np.asarray(symbols)
+    indices = np.asarray(indices)
+    cdf = np.asarray(cdf, dtype=np.uint32)
+    if symbols.shape != indices.shape:
+        raise ValueError(f"symbols {symbols.shape} and indices "
+                         f"{indices.shape} differ in shape")
+    _check_indices(indices, cdf.shape[0])
+    coding_shape = symbols.shape[1:]
+    if native.enabled():
+        return native.encode_lanes(symbols.reshape(-1, 1),
+                                   indices.reshape(-1, 1), cdf, cdf_length,
+                                   cdf_offset, precision), coding_shape
+    values, overflow, max_value = _prepare(symbols, indices, cdf, cdf_length,
+                                           cdf_offset)
+    values_f = values.reshape(-1)
+    overflow_f = overflow.reshape(-1)
+    indices_f = indices.reshape(-1).astype(np.int64)
+    max_value_f = max_value.reshape(-1)
+    widths_f = _nibble_widths(overflow_f)
+
+    msg = ans.empty_message(())
+    one = np.uint64(1)
+    for i in range(len(values_f) - 1, -1, -1):
+        v = int(values_f[i])
+        if v == max_value_f[i]:  # overflow payload, pushed in reverse
+            w = int(widths_f[i])
+            ov = int(overflow_f[i])
+            for j in range(w - 1, -1, -1):
+                nib = (ov >> (j * OVERFLOW_WIDTH)) & MAX_OVERFLOW
+                ans.rans_push(msg, np.uint64(nib), one, OVERFLOW_WIDTH)
+            rem = w
+            markers = []
+            while rem >= MAX_OVERFLOW:
+                markers.append(MAX_OVERFLOW)
+                rem -= MAX_OVERFLOW
+            markers.append(rem)
+            for m in reversed(markers):
+                ans.rans_push(msg, np.uint64(m), one, OVERFLOW_WIDTH)
+        row = cdf[indices_f[i]]
+        ans.rans_push(msg, np.uint64(row[v]), np.uint64(row[v + 1] - row[v]),
+                      precision)
+    return ans.flatten_message(msg), coding_shape
+
+
+def decode_indexed_scalar(encoded, indices, cdf, cdf_length, cdf_offset,
+                          precision, inverse_table=None) -> np.ndarray:
+    """Scalar decode; `indices` must match the encoder's. Returns int32
+    symbols shaped like `indices`."""
+    indices = np.asarray(indices)
+    cdf = np.asarray(cdf, dtype=np.uint32)
+    if inverse_table is None:
+        inverse_table = build_inverse_table(cdf, cdf_length, precision)
+    _check_indices(indices, cdf.shape[0])
+    indices_f = indices.reshape(-1).astype(np.int64)
+    if native.enabled():
+        decoded = native.decode_lanes(encoded, indices_f.reshape(-1, 1), cdf,
+                                      cdf_length, cdf_offset, inverse_table,
+                                      precision)
+        return decoded.reshape(indices.shape).astype(np.int32)
+    msg = ans.unflatten_message_scalar(encoded)
+    decoded = np.empty(len(indices_f), dtype=np.int64)
+    one = np.uint64(1)
+
+    def pop_nibble() -> int:
+        cf, complete = ans.rans_pop(msg, OVERFLOW_WIDTH)
+        complete(cf, one)
+        return int(cf)
+
+    for i in range(len(indices_f)):
+        idx = indices_f[i]
+        cf, complete = ans.rans_pop(msg, precision)
+        value = int(inverse_table[idx, int(cf)])
+        row = cdf[idx]
+        complete(np.uint64(row[value]), np.uint64(row[value + 1] - row[value]))
+        max_value = int(cdf_length[idx]) - 2
+        if value == max_value:
+            val = pop_nibble()
+            widths = val
+            while val == MAX_OVERFLOW:
+                val = pop_nibble()
+                widths += val
+            ov = 0
+            for j in range(widths):
+                ov |= pop_nibble() << (j * OVERFLOW_WIDTH)
+            value = ov >> 1
+            value = -value - 1 if ov & 1 else value + max_value
+        decoded[i] = value + cdf_offset[idx]
     return decoded.reshape(indices.shape).astype(np.int32)

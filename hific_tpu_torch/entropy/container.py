@@ -1,5 +1,5 @@
-"""`.hfc` binary container (version 1); this package's own copy of the JAX
-package's `entropy/container.py`, byte for byte the same format:
+"""`.hfc` binary container; this package's own copy of the JAX package's
+`entropy/container.py`, byte for byte the same format:
 
   uint16 hyperlatent spatial shape (H, W)
   uint16 image spatial shape (H, W)
@@ -10,16 +10,22 @@ package's `entropy/container.py`, byte for byte the same format:
   uint32 byte length + raw uint32 rANS words, hyperlatents; magic
   uint32 byte length + raw uint32 rANS words, latents; magic
 
-A file of a bfloat16 codec is the same body prefixed with 0xFF 0xFF
-"HFCb": its coding indices come from a bfloat16 hyper synthesis, so a
-codec of another compute dtype must not decode it, and the prefix lets the
-reader know (`CompressionOutput.compute_dtype`). A float32 file has no
-prefix and stays byte for byte the JAX package's; the JAX package's reader
-refuses a prefixed file as corrupt.
+Version 2, written when the streams are lane-sharded (`coder_threads` > 1,
+`CompressionOutput.sharded`): the same body prefixed with the 6 bytes
+0xFF 0xFF "HFC2", each rANS payload a self-describing sharded payload
+(`entropy/coding.py`). A float32 v2 file is byte for byte the JAX
+package's. A v1 file cannot start with 0xFFFF (a hyperlatent grid 65535
+rows tall), so the first two bytes tell the versions apart.
 
-Version 2 files (lane-sharded streams, prefixed 0xFF 0xFF "HFC2") come from
-the JAX package's multithreaded coder, which is not ported yet: reading one
-raises.
+A file of a bfloat16 codec is prefixed with 0xFF 0xFF "HFCb": its coding
+indices come from a bfloat16 hyper synthesis, so a codec of another compute
+dtype must not decode it, and the prefix lets the reader know
+(`CompressionOutput.compute_dtype`). A bfloat16 v2 file carries both
+prefixes, the dtype's first:
+
+  0xFF 0xFF "HFCb" | 0xFF 0xFF "HFC2" | body with sharded payloads
+
+The JAX package has no bfloat16 file; its reader refuses one as corrupt.
 """
 
 import io
@@ -41,6 +47,8 @@ class CompressionOutput(NamedTuple):
     hyper_coding_shape: Tuple[int, ...]
     latent_coding_shape: Tuple[int, ...]
     batch_shape: int
+    # v2: the payloads are lane-sharded (serialized as the v2 prefix)
+    sharded: bool = False
     # reporting (not serialized)
     hyperlatent_bits: float = 0.0
     latent_bits: float = 0.0
@@ -76,6 +84,8 @@ def _save_to(f, out: CompressionOutput) -> None:
     elif out.compute_dtype != "float32":
         raise ValueError(f"no container for compute dtype "
                          f"{out.compute_dtype!r}")
+    if out.sharded:
+        f.write(V2_MAGIC)
     _write_u16(f, out.hyperlatent_spatial_shape)
     _write_u16(f, out.spatial_shape)
     _write_u16(f, out.hyper_coding_shape)
@@ -90,13 +100,16 @@ def _save_to(f, out: CompressionOutput) -> None:
 
 
 def _load_from(f) -> CompressionOutput:
-    prefix = f.read(len(V2_MAGIC))
-    if prefix == V2_MAGIC:
-        raise ValueError("container v2 (sharded streams) is not supported "
-                         "by hific_tpu_torch yet")
-    compute_dtype = "bfloat16" if prefix == BF16_MAGIC else "float32"
-    if compute_dtype == "float32":
-        f.seek(0)
+    compute_dtype = "float32"
+    start = f.tell()
+    prefix = f.read(len(BF16_MAGIC))
+    if prefix == BF16_MAGIC:
+        compute_dtype = "bfloat16"
+        start = f.tell()
+        prefix = f.read(len(V2_MAGIC))
+    sharded = prefix == V2_MAGIC
+    if not sharded:
+        f.seek(start)
     hyper_spatial = _read_u16(f, 2)
     spatial = _read_u16(f, 2)
     hyper_coding = _read_u16(f, 3)
@@ -118,6 +131,7 @@ def _load_from(f) -> CompressionOutput:
         hyper_coding_shape=hyper_coding,
         latent_coding_shape=latent_coding,
         batch_shape=batch,
+        sharded=sharded,
         compute_dtype=compute_dtype,
     )
 

@@ -39,6 +39,36 @@ _TABLES_KEPT = 8
 _tables_by_density: "collections.OrderedDict" = collections.OrderedDict()
 
 
+def encode_symbols(symbols, indices, tables: CdfTables, vectorize: bool,
+                   shards: int) -> Tuple[np.ndarray, tuple]:
+    """The vectorized coder, its lanes sharded into `shards` streams where
+    `shards` > 1 (a container v2 payload), or the scalar coder where not
+    `vectorize`."""
+    args = (symbols, indices, tables.cdf, tables.cdf_length,
+            tables.cdf_offset, tables.precision)
+    if shards > 1:
+        if not vectorize:
+            raise ValueError("sharded coding shards the vectorized coder's "
+                             "lanes: it needs vectorize=True")
+        return coding.encode_indexed_sharded(*args, shards)
+    if vectorize:
+        return coding.encode_indexed(*args)
+    return coding.encode_indexed_scalar(*args)
+
+
+def decode_symbols(encoded, indices, tables: CdfTables, vectorize: bool,
+                   sharded: bool) -> np.ndarray:
+    """Decode what `encode_symbols` wrote: a sharded payload (which says
+    how many shards it holds), or else the vectorized or scalar stream."""
+    args = (encoded, indices, tables.cdf, tables.cdf_length,
+            tables.cdf_offset, tables.precision, tables.inverse)
+    if sharded:
+        return coding.decode_indexed_sharded(*args)
+    if vectorize:
+        return coding.decode_indexed(*args)
+    return coding.decode_indexed_scalar(*args)
+
+
 class FactorizedEntropyModel:
     """Entropy model of the learned factorized hyperlatent density: one CDF
     row per channel, independent of the data."""
@@ -91,25 +121,25 @@ class FactorizedEntropyModel:
         idx = np.broadcast_to(idx, (self.n_channels, *broadcast_shape))
         return np.broadcast_to(idx[None], (batch, *idx.shape))
 
-    def compress_symbols(self, symbols: np.ndarray) -> Tuple[np.ndarray, tuple]:
-        """Integer symbols (N, C, H, W) -> (uint32 stream, coding_shape)."""
+    def compress_symbols(self, symbols: np.ndarray, vectorize: bool = True,
+                         shards: int = 1) -> Tuple[np.ndarray, tuple]:
+        """Integer symbols (N, C, H, W) -> (uint32 stream, coding_shape), as
+        `encode_symbols` codes them."""
         if self.tables is None:
             raise RuntimeError("call build_tables() first")
         symbols = np.asarray(symbols, np.int32)
         indices = self._indices(symbols.shape[0], symbols.shape[2:])
-        return coding.encode_indexed(symbols, indices, self.tables.cdf,
-                                     self.tables.cdf_length,
-                                     self.tables.cdf_offset, self.precision)
+        return encode_symbols(symbols, indices, self.tables, vectorize,
+                              shards)
 
     def decompress_symbols(self, encoded: np.ndarray, batch: int,
-                           broadcast_shape) -> np.ndarray:
+                           broadcast_shape, vectorize: bool = True,
+                           sharded: bool = False) -> np.ndarray:
         if self.tables is None:
             raise RuntimeError("call build_tables() first")
         indices = self._indices(batch, broadcast_shape)
-        return coding.decode_indexed(encoded, indices, self.tables.cdf,
-                                     self.tables.cdf_length,
-                                     self.tables.cdf_offset, self.precision,
-                                     inverse_table=self.tables.inverse)
+        return decode_symbols(encoded, indices, self.tables, vectorize,
+                              sharded)
 
 
 class ConditionalEntropyModel:
@@ -134,17 +164,17 @@ class ConditionalEntropyModel:
         self.tables = build_scale_tables(std_cdf, std_q, self.scale_table,
                                          tail_mass, precision)
 
-    def compress_symbols(self, symbols: np.ndarray, indices: np.ndarray
+    def compress_symbols(self, symbols: np.ndarray, indices: np.ndarray,
+                         vectorize: bool = True, shards: int = 1
                          ) -> Tuple[np.ndarray, tuple]:
-        """Integer symbols + scale-table indices, both (N, C, H, W)."""
-        return coding.encode_indexed(np.asarray(symbols, np.int32),
-                                     np.asarray(indices, np.int32),
-                                     self.tables.cdf, self.tables.cdf_length,
-                                     self.tables.cdf_offset, self.precision)
+        """Integer symbols + scale-table indices, both (N, C, H, W), coded
+        as `encode_symbols` codes them."""
+        return encode_symbols(np.asarray(symbols, np.int32),
+                              np.asarray(indices, np.int32), self.tables,
+                              vectorize, shards)
 
-    def decompress_symbols(self, encoded: np.ndarray, indices: np.ndarray
+    def decompress_symbols(self, encoded: np.ndarray, indices: np.ndarray,
+                           vectorize: bool = True, sharded: bool = False
                            ) -> np.ndarray:
-        return coding.decode_indexed(encoded, np.asarray(indices, np.int32),
-                                     self.tables.cdf, self.tables.cdf_length,
-                                     self.tables.cdf_offset, self.precision,
-                                     inverse_table=self.tables.inverse)
+        return decode_symbols(encoded, np.asarray(indices, np.int32),
+                              self.tables, vectorize, sharded)

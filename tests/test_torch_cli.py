@@ -10,9 +10,12 @@ it compiling its device decoder): the `.hfc` files are byte-equal, PSNR in
 `metrics.json` agrees within 1e-3 dB with the JAX package's `psnr` of its
 reconstruction, and the port's PNGs are the JAX package's pixels within one
 level (the float reconstructions agree within ~4e-6, so a pixel can
-straddle a rounding boundary).
+straddle a rounding boundary). The codec flags `--scalar_rans`,
+`--coder_threads`, `--pipeline_chunk` and `--wire_chunk` write the JAX
+`Codec`'s bytes under the same options.
 """
 
+import io
 import json
 import os
 
@@ -23,6 +26,7 @@ from PIL import Image
 
 from hific_tpu.codec import Codec as JaxCodec
 from hific_tpu.config import mse_lpips_config
+from hific_tpu.entropy import container as jax_container
 from hific_tpu.entropy.container import save_compressed
 from hific_tpu.training.checkpoints import load_params_npz
 from hific_tpu.utils.metrics import psnr as jax_psnr
@@ -79,7 +83,7 @@ def setup(tmp_path_factory):
             "psnr": float(jax_psnr(x, recon.astype(np.float32) / 255.0)[0]),
             "rc_psnr": float(jax_psnr(x, codec.reconstruct(x))[0])})
     return dict(root=root, npz=npz, images=str(images), jax_out=jax_out,
-                jax_rows=jax_rows)
+                jax_rows=jax_rows, jax_codec=codec)
 
 
 def _port_compress(setup, name, *extra):
@@ -157,17 +161,36 @@ def test_reconstruct_rows_match_jax(setup):
     ["--spatial", "2"], ["--scalar_rans"], ["--coder_threads", "2"],
     ["--pipeline_chunk", "2"], ["--wire_chunk", "2"]])
 def test_unported_flags_exit_nonzero(setup, flag):
-    """The flags of unported features exit naming the ROADMAP item;
-    `--spatial 2` (ported) exits for want of devices on the one CPU, with
-    the JAX CLI's message."""
-    with pytest.raises(SystemExit) as e:
-        compress_cli.main(["-ckpt", setup["npz"], "-i", setup["images"],
-                           "-o", str(setup["root"] / "refused"),
-                           "--device", "cpu", *flag])
-    assert e.value.code not in (0, None)
-    want = ("--spatial 2 needs 2 devices; only 1 visible"
-            if flag[0] == "--spatial" else "ROADMAP")
-    assert want in str(e.value.code)
+    """`--spatial 2` exits for want of devices on the one CPU, with the JAX
+    CLI's message. The codec's flags run: with `--pipeline 2`, so that the
+    batch codec's chunks apply, each `.hfc` equals the JAX `Codec`'s
+    built with the same options as the JAX CLI builds it (scalar streams,
+    container v2; the chunks change no byte), and PSNR is finite."""
+    if flag[0] == "--spatial":
+        with pytest.raises(SystemExit) as e:
+            compress_cli.main(["-ckpt", setup["npz"], "-i", setup["images"],
+                               "-o", str(setup["root"] / "refused"),
+                               "--device", "cpu", *flag])
+        assert e.value.code not in (0, None)
+        assert "--spatial 2 needs 2 devices; only 1 visible" in str(
+            e.value.code)
+        return
+    out, rows = _port_compress(setup, "flag_" + flag[0][2:], "--pipeline",
+                               "2", *flag)
+    codec = setup["jax_codec"]
+    codec.vectorize = flag[0] != "--scalar_rans"
+    codec.coder_threads = 2 if flag[0] == "--coder_threads" else 1
+    try:
+        for i, row in enumerate(rows):
+            assert np.isfinite(row["psnr"])
+            x = np.asarray(Image.open(os.path.join(setup["images"],
+                                                   f"img_{i}.png")),
+                           np.float32)[None] / 255.0
+            want = io.BytesIO()
+            jax_container._save_to(want, codec.compress(x))
+            assert _read(out / f"img_{i}.hfc") == want.getvalue()
+    finally:
+        codec.vectorize, codec.coder_threads = True, 1
 
 
 def test_resolve_npz(setup):
