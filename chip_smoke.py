@@ -61,14 +61,21 @@ paths against its plain PyTorch version:
    exactly once per ChannelNorm (29 launches) and each rANS kernel once
    (the encoder once more where the uncalibrated image overruns its caps),
    and the card's encoder/generator agree with the plain CPU path on a
-   64x64 crop (within 1e-3); then, at bench.py's operating point (four
+   64x64 crop (within 1e-3; the generator with its default depth-to-space
+   tail, the encoder also with the space-to-depth front on), and LPIPS with
+   the VGG16 backbone on one seeded 256x256 pair with the CPU's (1e-4
+   relative); then, at bench.py's operating point (four
    seeded 1024x1024 images, the encoder's output scaled into 0.20-0.45
    bpp), compress_many and decompress_many: no encode past the default
    caps, one encode launch (all y and z streams) and one decode launch
    (all y streams) for the four images, `.hfc` bytes equal to the host
    coder's and images equal to the host decoder's, and the serial,
    pipelined and device-resident times with the rANS kernels' device time
-   in a profiled pass; and the count of coding indices
+   in a profiled pass; on the same images the generator with the
+   depth-to-space tail on against off (reconstructions within 1e-4 and one
+   uint8 level) and the encoder with the space-to-depth front on against
+   off (the y symbols that differ, reported), one norm launch a layer in
+   each, with each setting's time; and the count of coding indices
    where the card's synth_stats differs from the CPU's on one image's
    hyperlatents (reported, not gated); then the same four images at
    pipeline_chunk 4 (the transforms image by image, the reconstructions in
@@ -138,7 +145,9 @@ paths against its plain PyTorch version:
    (symbols lossless; 29 norm launches, norm_in's on the fp32 decoded
    latents and the rest bf16; one launch of each rANS kernel), then the
    batch path of phase 6 (bytes equal to the host coder's; serial,
-   pipelined and device-resident MP/s; pipeline_chunk 4 with its gates),
+   pipelined and device-resident MP/s; pipeline_chunk 4 with its gates;
+   the d2s and s2d settings' launches gated, their differences and times
+   reported),
    and 16 seeded 256x256 images at pipeline_chunk 1 and 4 (MP/s at each,
    the device busy share of a profiled pass at 4, the same bytes and
    pixels at both). The
@@ -1213,11 +1222,12 @@ def train_gan_flagship(card: str, n_norms: int, warmstart: str,
     return fwd, bwd, summary
 
 
-def event_ms(fn, reps: int) -> float:
+def event_ms(fn, reps: int, warm: bool = False) -> float:
     """Median device time of `reps` calls of fn, each between two CUDA
     events (a serial kernel's time varies with its data, so each call is
-    timed alone)."""
-    fn()
+    timed alone), after one call unless the caller has `warm` shapes."""
+    if not warm:
+        fn()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -1576,7 +1586,7 @@ def chunk_path(codec, imgs, outs, recons, small_images: bool, card: str):
             [hfc_bytes(o) for o in outs], codec.decompress_many(outs))
         return outs
 
-    one_pass()  # the first pass at this shape, untimed
+    # The first pass at this shape, untimed.
     row = {"images": SMALL_IMAGES, "side": SMALL_SIDE,
            "bpp": float(np.mean([o.total_bpp for o in one_pass()]))}
     for chunk in (1, CHUNK):
@@ -1662,6 +1672,158 @@ def host_coders_path(codec, card: str):
         f"shards) {sizes['v2']} B, scalar {sizes['scalar']} B; same symbols "
         f"and pixels, no rANS launch; wire_chunk {CHUNK} = wire_chunk 1 on 4 "
         f"images (host coder, ms {summary['wire_chunk_ms']}; {card})")
+    return summary
+
+
+def s2d_crop_card_vs_cpu(codec, cpu, crop) -> str:
+    """The encoder with the space-to-depth front on, card against the CPU's
+    plain path on the 64x64 crop: latents within 1e-3 of their largest
+    magnitude (the d2s tail is on by default, so the crop check before it
+    covers the generator's)."""
+    from hific_tpu_torch.runtime import fp32_numerics
+
+    encs = (codec.model.encoder, cpu.model.encoder)
+    saved = [e.s2d_front for e in encs]
+    for e in encs:
+        e.s2d_front = True
+    with torch.inference_mode(), fp32_numerics(deterministic=True):
+        y_gpu, _ = codec.model.encode(codec._model_input(crop))
+        y_cpu, _ = cpu.model.encode(cpu._model_input(crop))
+    for e, flag in zip(encs, saved):
+        e.s2d_front = flag
+    err = float((y_gpu.cpu() - y_cpu).abs().max()
+                / y_cpu.abs().max().clamp_min(1.0))
+    if not (np.isfinite(err) and err <= 1e-3):
+        raise AssertionError(f"card vs CPU on a 64x64 crop with the s2d "
+                             f"front: latents differ by {err} (relative)")
+    return (f"card vs CPU plain path, 64x64 crop, s2d front on: latents max "
+            f"diff {err:.2e} of their largest magnitude (limit 1e-3)")
+
+
+def vgg_lpips_card_vs_cpu() -> str:
+    """LPIPS with the VGG16 backbone (seeded) on one pair of seeded
+    256x256 images, card against CPU: within 1e-4 relative."""
+    from hific_tpu_torch.models.lpips import default_lpips
+    from hific_tpu_torch.runtime import fp32_numerics
+
+    rng = np.random.RandomState(SEED)
+    a, b = (torch.from_numpy(rng.rand(1, 3, 256, 256).astype(np.float32))
+            for _ in range(2))
+    model = default_lpips(SEED, "vgg").eval()
+    with torch.inference_mode():
+        want = float(model(a, b, normalize=True))
+        model = model.cuda()
+        with fp32_numerics(deterministic=True):
+            got = float(model(a.cuda(), b.cuda(), normalize=True))
+    rel = abs(got - want) / abs(want)
+    if not (np.isfinite(got) and rel <= 1e-4):
+        raise AssertionError(f"VGG LPIPS card {got} vs CPU {want}: {rel:.2e} "
+                             f"relative (limit 1e-4)")
+    return (f"VGG16 LPIPS, one 256x256 pair: card {got:.6f}, CPU {want:.6f}, "
+            f"{rel:.2e} relative (limit 1e-4)")
+
+
+def layout_rewrites(codec, imgs, card: str) -> dict:
+    """The generator with the depth-to-space tail (`d2s_generator_tail`)
+    on against off, and the encoder with the space-to-depth front
+    (`s2d_encoder_front`) on against off, on the images `imgs` at the
+    calibrated operating point. The generator runs on the encoder's
+    latents of the images: with seeded random weights the decoded latents
+    there are all zero (z rounds to 0, so mu is 0, and so are the y
+    symbols), and so is the generator's output on them. Gated in float32:
+    the generator's output nonzero and within 1e-4 of its largest
+    magnitude, and the reconstruction within 1e-4 and as uint8 within one
+    level; in either dtype: one norm launch a norm layer an image in both
+    settings. Reported: the largest differences, the y symbols that
+    differ, and each setting's device time on one image (CUDA events,
+    median of 5, the shapes warm). The flags are put back as the config
+    has them."""
+    from hific_tpu_torch.models.layers import Norm
+    from hific_tpu_torch.ops import fused_norm
+    from hific_tpu_torch.runtime import fp32_numerics
+
+    model = codec.model
+    gen, enc = model.generator, model.encoder
+    saved = gen.d2s_tail, enc.s2d_front
+    layers = {name: sum(isinstance(m, Norm) for m in part.modules())
+              for name, part in (("d2s", gen), ("s2d", enc))}
+    with torch.inference_mode(), fp32_numerics(deterministic=True):
+        xs = [codec._model_input(x) for x in imgs]
+        latents = [model.encode(x)[0] for x in xs]
+
+        def variant(call, inputs):
+            before = fused_norm.KERNEL.launches
+            results = [call(v) for v in inputs]
+            torch.cuda.synchronize()
+            per_image = (fused_norm.KERNEL.launches - before) / len(inputs)
+            return (results, per_image,
+                    event_ms(lambda: call(inputs[0]), 5, warm=True))
+
+        def largest(a, b) -> float:
+            return max(float((u.float() - v.float()).abs().max())
+                       for u, v in zip(a, b))
+
+        summary = {}
+        for name, module, attr, inputs in (("d2s", gen, "d2s_tail", latents),
+                                           ("s2d", enc, "s2d_front", xs)):
+            runs = {}
+            for flag in (True, False):
+                setattr(module, attr, flag)
+                runs[flag] = variant(module, inputs)
+            on, off = runs[True][0], runs[False][0]
+            scale = max(float(b.abs().max()) for b in off)
+            if not scale > 0:
+                raise AssertionError(f"{name} on vs off: the output is all "
+                                     f"zero, so the comparison says nothing")
+            summary[name] = {
+                "on_ms": runs[True][2], "off_ms": runs[False][2],
+                "norm_launches_per_image": {"on": runs[True][1],
+                                            "off": runs[False][1]},
+                "norm_layers": layers[name],
+                "max_diff_of_largest": largest(on, off) / scale}
+            if name == "d2s":
+                images = [[model.reconstruction(r, x.shape[1:3]) for r, x
+                           in zip(rs, imgs)] for rs in (on, off)]
+                u8 = [[codec._image(r, True).int() for r in rs]
+                      for rs in images]
+                summary[name].update(max_abs_diff=largest(*images),
+                                     max_uint8_diff=int(largest(*u8)))
+            del runs, on, off
+        syms = {}
+        for flag in (True, False):
+            enc.s2d_front = flag
+            syms[flag] = [codec.encode_symbols(x)[1] for x in imgs]
+        summary["s2d"]["y_symbols_differ"] = sum(
+            int((a != b).sum()) for a, b in zip(syms[True], syms[False]))
+        summary["s2d"]["y_symbols"] = sum(a.size for a in syms[True])
+    gen.d2s_tail, enc.s2d_front = saved
+    dtype = codec.config.dtype
+    for name in ("d2s", "s2d"):
+        launches = summary[name]["norm_launches_per_image"]
+        if launches != {"on": layers[name], "off": layers[name]}:
+            raise AssertionError(f"{dtype} {name} on / off: norm launches "
+                                 f"per image {launches}; expected one per "
+                                 f"norm layer ({layers[name]})")
+    d2s = summary["d2s"]
+    if dtype == "float32" and not (d2s["max_diff_of_largest"] <= 1e-4
+                                   and d2s["max_abs_diff"] <= 1e-4
+                                   and d2s["max_uint8_diff"] <= 1):
+        raise AssertionError(f"float32 generator, d2s tail on vs off: "
+                             f"{d2s}; limits 1e-4 of the largest output, "
+                             f"1e-4 and one uint8 level")
+    s2d = summary["s2d"]
+    log(f"{dtype} layout rewrites on {len(imgs)} {imgs[0].shape[2]}x"
+        f"{imgs[0].shape[1]} images: d2s tail on vs off on their encoder "
+        f"latents, generator output "
+        f"differs by {d2s['max_diff_of_largest']:.2e} of its largest, "
+        f"reconstructions by {d2s['max_abs_diff']:.2e} (uint8 "
+        f"{d2s['max_uint8_diff']}), generator {d2s['on_ms']:.2f} vs "
+        f"{d2s['off_ms']:.2f} ms an image; s2d front on vs off, "
+        f"{s2d['y_symbols_differ']} of {s2d['y_symbols']} y symbols differ "
+        f"(latents by {s2d['max_diff_of_largest']:.2e} of their largest), "
+        f"encoder {s2d['on_ms']:.2f} vs {s2d['off_ms']:.2f} ms an image; "
+        f"{layers['d2s']} and {layers['s2d']} norm launches an image in "
+        f"both settings (CUDA events, median of 5; {card})")
     return summary
 
 
@@ -1760,7 +1922,7 @@ def batch_path(codec, card: str, small_images: bool = False):
             return [int(r[0, 0, 0, 0]) for r in recons]
 
         one_pass()
-        pipelined = float(np.median([timed(one_pass)[1] for _ in range(5)]))
+        pipelined = float(np.median([timed(one_pass)[1] for _ in range(3)]))
         codec.pipeline_chunk = CHUNK  # the same shapes: warm already
         pipelined_chunk = float(np.median([timed(one_pass)[1]
                                            for _ in range(3)]))
@@ -1773,7 +1935,7 @@ def batch_path(codec, card: str, small_images: bool = False):
         return [int(r[0, 0, 0, 0]) for r in recons]
 
     device_pass()
-    resident = float(np.median([timed(device_pass)[1] for _ in range(5)]))
+    resident = float(np.median([timed(device_pass)[1] for _ in range(3)]))
     wall_ms, rows, busy_ms = profiled(device_pass)
     kernel_ms = {k: sum(e.self_device_time_total for e in rows if k in e.key)
                  / 1e3 for k in ("rans_encode", "rans_decode", "channel_norm")}
@@ -1800,6 +1962,7 @@ def batch_path(codec, card: str, small_images: bool = False):
         "profiled_rans_encode_ms": kernel_ms["rans_encode"],
         "profiled_rans_decode_ms": kernel_ms["rans_decode"],
         "profiled_channel_norm_ms": kernel_ms["channel_norm"],
+        "layout_rewrites": layout_rewrites(codec, imgs, card),
     }
     log(f"batch path, 1024x1024 at {summary['bpp']:.4f} bpp: serial "
         f"compress_file {enc:.1f} + decompress_file {dec:.1f} ms per image "
@@ -1808,8 +1971,7 @@ def batch_path(codec, card: str, small_images: bool = False):
         f"({summary['pipelined_mp_s']:.3f} MP/s); device-resident x4 "
         f"{summary['device_resident_mp_s']:.3f} MP/s; at pipeline_chunk "
         f"{CHUNK}: pipelined {summary[f'pipelined_mp_s_chunk{CHUNK}']:.3f} "
-        f"MP/s (host clock after synchronize, medians of 3, 5 and 3; "
-        f"{card})")
+        f"MP/s (host clock after synchronize, medians of 3; {card})")
     return (enc_launches, dec_launches), outs[0], summary
 
 
@@ -3304,6 +3466,8 @@ def main() -> int:
     log(f"card vs CPU plain path, 64x64 crop: latents max diff {enc_err:.2e} "
         f"of their largest magnitude, reconstruction max abs diff "
         f"{gen_err:.2e} (limits 1e-3)")
+    log(s2d_crop_card_vs_cpu(codec, cpu, crop))
+    log(vgg_lpips_card_vs_cpu())
 
     # Phase 6b: compress_many / decompress_many at bench.py's operating point.
     (enc_launches, dec_launches), batch_out, batch = batch_path(codec, card)
@@ -3443,6 +3607,11 @@ def main() -> int:
         "train_step_library_ms": step["float32"]["library_ms"],
         "train_step_bound_ms": step["float32"]["bound_ms"],
         "sets": norm["forward"],
+        "layout_rewrites_launches_per_image": {
+            dtype: {name: summary["layout_rewrites"][name][
+                "norm_launches_per_image"] for name in ("d2s", "s2d")}
+            for dtype, summary in (("float32", batch),
+                                   ("bfloat16", bf16_batch))},
         "empty_kernel_ms": norm["empty_kernel_ms"],
         "per_shape": norm["forward_rows"],
     }, {

@@ -549,9 +549,12 @@ class Codec:
 
     @staticmethod
     def _image(recon: torch.Tensor, as_uint8: bool) -> torch.Tensor:
-        """NCHW [0, 1] generator output -> the NHWC reconstruction."""
+        """NCHW [0, 1] generator output -> the NHWC reconstruction. uint8
+        saturates as XLA's conversion does: in bfloat16 a pixel at 1.0 maps
+        to 255.5, which rounds to 256, and torch's cast would wrap it to
+        0."""
         if as_uint8:
-            recon = (recon * 255.0 + 0.5).to(torch.uint8)
+            recon = (recon * 255.0 + 0.5).clamp(max=255.0).to(torch.uint8)
         else:
             recon = recon.float()
         return recon.permute(0, 2, 3, 1)

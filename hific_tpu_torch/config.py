@@ -79,11 +79,16 @@ class Config:
     # computes every conv stack in bfloat16 and keeps the transposed convs'
     # parameters (and their Adam moments) in bfloat16; the rest of the
     # parameters, and the density, stay float32. `use_remat` recomputes
-    # each generator residual block in the backward. `use_pallas_norm`,
-    # `s2d_encoder_front` and `d2s_generator_tail` are layout choices of
-    # the TPU package: they are accepted so that configs parse, and the
-    # plain layers are computed (the norm always runs the CUDA kernel on a
-    # GPU tensor).
+    # each generator residual block in the backward. `s2d_encoder_front`
+    # runs the encoder's stem and first downsample, `d2s_generator_tail`
+    # the generator's last upsample and projection, on a packed
+    # half-resolution grid (`ops/s2d.py`, `ops/d2s.py`): the same function
+    # of the same parameters, summed in another order, so a config means
+    # the same program in both packages; each falls back to the plain
+    # layers under instance norm (s2d also for an odd H or W).
+    # `use_pallas_norm` names the TPU package's norm kernel: accepted so
+    # that configs parse (the norm always runs the CUDA kernel on a GPU
+    # tensor).
     dtype: str = "float32"
     use_pallas_norm: bool = False
     s2d_encoder_front: bool = False

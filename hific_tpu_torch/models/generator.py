@@ -12,10 +12,12 @@ without one), while `norm_in` sees the latents in their own dtype, as in
 the JAX package. With `use_remat` each residual block runs under
 non-reentrant activation checkpointing where a gradient is recorded, so its
 activations are recomputed in the backward instead of kept, as the JAX
-package wraps each block in `nn.remat`. The JAX package can run the last
-upsample and the projection on a depth-to-space grid (`d2s_generator_tail`,
-a TPU layout rewrite with the same parameters and math); this module always
-computes the plain layers.
+package wraps each block in `nn.remat`. With `d2s_tail` and channel norm
+(the config's `d2s_generator_tail`, on by default as in the JAX package),
+the last upsample, its norm and the projection run on the packed
+half-resolution grid (`ops/d2s.py`): the same function of the same
+parameters, summed in another order; under instance norm the flag falls
+back to the plain layers, as the JAX package's does.
 """
 
 from typing import Optional
@@ -25,6 +27,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from hific_tpu_torch.models.layers import Conv, ConvTranspose, Norm
+from hific_tpu_torch.ops.d2s import generator_tail_d2s
 from hific_tpu_torch.ops.padding import reflect_pad
 from hific_tpu_torch.ops.quantize import draw_like
 
@@ -60,10 +63,13 @@ class Generator(nn.Module):
     def __init__(self, C: int = 220, n_residual_blocks: int = 9,
                  norm_type: str = "channel", sample_noise: bool = False,
                  noise_dim: int = 32, use_remat: bool = False,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, d2s_tail: bool = False):
         super().__init__()
         f = GENERATOR_FILTERS
         self.n_residual_blocks = n_residual_blocks
+        self.dtype = dtype
+        # The per-phase norm of the packed tail is a ChannelNorm of a view.
+        self.d2s_tail = d2s_tail and norm_type == "channel"
         self.noise_dim = noise_dim if sample_noise else 0
         self.use_remat = use_remat
         trunk = f[0] + self.noise_dim
@@ -99,6 +105,10 @@ class Generator(nn.Module):
             else:
                 x = block(x)
         x = x + head  # global skip
-        for i in range(4):
+        for i in range(3 if self.d2s_tail else 4):
             x = getattr(self, f"norm_up{i}")(getattr(self, f"upconv{i}")(x))
+        if self.d2s_tail:
+            return generator_tail_d2s(
+                x, self.upconv3.weight, self.upconv3.bias, self.norm_up3,
+                self.conv_out.weight, self.conv_out.bias, self.dtype)
         return self.conv_out(reflect_pad(x, 3))

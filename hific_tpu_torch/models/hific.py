@@ -71,11 +71,13 @@ class HiFiC(nn.Module):
         self.config = config
         C = config.effective_latent_channels
         dtype = compute_dtype(config.dtype)
-        self.encoder = Encoder(C, norm_type=config.norm_type, dtype=dtype)
+        self.encoder = Encoder(C, norm_type=config.norm_type, dtype=dtype,
+                               s2d_front=config.s2d_encoder_front)
         self.generator = Generator(
             C, config.n_residual_blocks, norm_type=config.norm_type,
             sample_noise=config.sample_noise, noise_dim=config.noise_dim,
-            use_remat=config.use_remat, dtype=dtype)
+            use_remat=config.use_remat, dtype=dtype,
+            d2s_tail=config.d2s_generator_tail)
         if config.use_latent_mixture_model:
             self.hyperprior = HyperpriorDLMM(
                 C, config.hyperlatent_filters,
@@ -162,7 +164,11 @@ class HiFiC(nn.Module):
     def generate(self, latents, spatial_shape):
         """Quantized latents -> reconstruction in [0, 1], cropped to the
         image's (H, W)."""
-        r = self.generator(latents)
+        return self.reconstruction(self.generator(latents), spatial_shape)
+
+    def reconstruction(self, r, spatial_shape):
+        """The generator's output -> the image in [0, 1], cropped to
+        (H, W)."""
         if self.config.normalize_input_image:
             r = torch.tanh(r)
         r = r[:, :, : spatial_shape[0], : spatial_shape[1]]

@@ -143,10 +143,14 @@ def restore_train_state(path: str, config: Config, device=None,
     return state
 
 
-def export_params_npz(out_path: str, model: torch.nn.Module, config: Config
-                      ) -> str:
-    """Codec parameters (float32, exact) + config -> one compressed .npz."""
-    entries = {NPZ_LEAF_PREFIX + k: v
+def export_params_npz(out_path: str, model: torch.nn.Module, config: Config,
+                      cast_floats=None) -> str:
+    """Codec parameters + config -> one compressed .npz. The leaves are
+    float32 and exact, or rounded to `cast_floats` (np.float16, say: half
+    the size; a restore widens them to float32), as the JAX package's
+    `cast_floats` does."""
+    entries = {NPZ_LEAF_PREFIX + k: (v if cast_floats is None
+                                     else v.astype(cast_floats))
                for k, v in jax_params_from_model(model).items()}
     entries[NPZ_CONFIG_KEY] = np.frombuffer(
         config.to_json().encode("utf-8"), dtype=np.uint8)

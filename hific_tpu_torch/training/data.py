@@ -1,6 +1,6 @@
 """Input pipelines; counterpart of the JAX package's `training/data.py`
-(`TrainDataset` with uint8 output, `DeviceDataset`, `EvalDataset`,
-`prefetch`).
+(`TrainDataset` with uint8 output, `CityScapesDataset`, `DeviceDataset`,
+`EvalDataset`, `prefetch`).
 
 `TrainDataset`: random scale in [max(crop / short side, 0.75), 0.95],
 random crop to crop_size, horizontal flip; batches of uint8 NHWC crops (the
@@ -172,6 +172,18 @@ class TrainDataset:
                     for i in rows]]
                 yield (np.stack([img for img, _ in samples]),
                        np.asarray([bpp for _, bpp in samples], np.float32))
+
+
+class CityScapesDataset(TrainDataset):
+    """`TrainDataset` over CityScapes' `<root>/leftImg8bit/<split>/<city>/
+    *.png` layout, or over `root` itself where that directory is absent,
+    as the JAX package's `CityScapesDataset`."""
+
+    def __init__(self, root: str, split: str = "train", crop_size: int = 256,
+                 seed: int = 0):
+        img_dir = os.path.join(root, "leftImg8bit", split)
+        super().__init__(img_dir if os.path.isdir(img_dir) else root,
+                         crop_size=crop_size, seed=seed)
 
 
 class DeviceDataset:

@@ -25,7 +25,8 @@ Every conversion is an exact permutation or an exact widening:
 widen exactly to float32), so what this package trains exports in the JAX
 artifact layout (`training/checkpoints.py`,
 `export_params_npz`). `lpips_state_dict_from_jax` carries the JAX
-package's LPIPS parameters (`models/lpips.py`) to this package's.
+package's LPIPS parameters (`models/lpips.py`) to this package's, and
+`jax_lpips_params_from_model` back.
 
 The discriminator (`disc_state_dict_from_jax`, `jax_disc_from_model`)
 lives apart from the codec tree in the JAX package (`disc_params`, and
@@ -213,8 +214,9 @@ def jax_disc_from_model(disc: nn.Module) -> Tuple[Dict[str, np.ndarray],
 
 def lpips_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     """The JAX package's LPIPS parameter tree (`backbone/convK/{kernel,
-    bias}`, HWIO kernels, and the heads `linK`) -> state_dict for
-    `models.lpips.LPIPS`."""
+    bias}`, HWIO kernels, and the heads `linK`), of either net (AlexNet's
+    conv1 .. conv5, VGG16's conv0 .. conv12) -> state_dict for
+    `models.lpips.LPIPS` of that net."""
     out = {}
     for path, value in flatten_tree(params).items():
         a = leaf_to_float32(value)
@@ -222,4 +224,18 @@ def lpips_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
         if parts[-1] == "kernel":
             parts[-1], a = "weight", a.transpose(3, 2, 0, 1)
         out[".".join(parts)] = torch.from_numpy(np.ascontiguousarray(a))
+    return out
+
+
+def jax_lpips_params_from_model(model: nn.Module) -> Dict[str, np.ndarray]:
+    """`models.lpips.LPIPS` -> {'backbone/convK/kernel': HWIO, ...,
+    'linK': (C,)} float32, the JAX package's LPIPS tree (the inverse of
+    `lpips_state_dict_from_jax`)."""
+    out = {}
+    for name, t in model.state_dict().items():
+        a = t.detach().float().cpu().numpy()
+        parts = name.split(".")
+        if parts[-1] == "weight":
+            parts[-1], a = "kernel", a.transpose(2, 3, 1, 0)
+        out["/".join(parts)] = np.ascontiguousarray(a, np.float32)
     return out

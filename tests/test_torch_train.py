@@ -497,7 +497,9 @@ def _jax_relu_outputs(cfg, params, x_u8):
     forward at `params`: {port module name: NCHW tensor}. The generator's
     last one runs inside `ops.d2s.generator_tail_d2s`, on the packed
     half-resolution grid; a wrapper takes its ReLU output with the ops
-    that function runs and hands it out through a host callback."""
+    that function runs and hands it out through a host callback, laid out
+    as the port's `norm_up3` sees it in its own packed tail: the
+    (N, 60, h, 4w) per-phase view of the packed (N, h, w, 240) tensor."""
     model = JaxHiFiC(cfg)
     out = {}
     tail = jax_d2s.generator_tail_d2s
@@ -513,7 +515,7 @@ def _jax_relu_outputs(cfg, params, x_u8):
         y = jax_d2s.channel_norm(y.reshape(n, hh, ww, 4, -1),
                                  gamma.astype(y.dtype), beta.astype(y.dtype),
                                  eps=eps)
-        y = jax_d2s.depth_to_space2(jax.nn.relu(y).reshape(n, hh, ww, -1))
+        y = jax.nn.relu(y).reshape(n, hh, 4 * ww, -1)
         jax.debug.callback(
             lambda v: out.__setitem__("generator.norm_up3",
                                       _t(np.asarray(v))), y)
