@@ -66,7 +66,11 @@ paths against its plain PyTorch version:
    the VGG16 backbone on one seeded 256x256 pair with the CPU's (1e-4
    relative); then, at bench.py's operating point (four
    seeded 1024x1024 images, the encoder's output scaled into 0.20-0.45
-   bpp), compress_many and decompress_many: no encode past the default
+   bpp; seeded weights there code real symbols, `code_real_symbols_`),
+   compress_many and decompress_many: the share of nonzero z and y
+   symbols, the distinct coding indices and the decoded pixels' spread
+   printed on a line of its own (gated: z and y not all zero, more than
+   one index, no constant image), no encode past the default
    caps, one encode launch (all y and z streams) and one decode launch
    (all y streams) for the four images, `.hfc` bytes equal to the host
    coder's and images equal to the host decoder's, and the serial,
@@ -77,7 +81,13 @@ paths against its plain PyTorch version:
    off (the y symbols that differ, reported), one norm launch a layer in
    each, with each setting's time; and the count of coding indices
    where the card's synth_stats differs from the CPU's on one image's
-   hyperlatents (reported, not gated); then the same four images at
+   hyperlatents (reported, not gated); then a fresh codec on the same
+   weights builds its tables and imports others (its factorized rows
+   rolled by a channel, scale tables at tail mass 2**-4), and
+   compress_many / decompress_many of two of the images run through the
+   device coders: bytes equal to the host coder's with those tables and
+   other than the default tables', symbols lossless, the host decoder's
+   pixels, one rANS launch of each kind a call; then the same four images at
    pipeline_chunk 4 (the transforms image by image, the reconstructions in
    one copy a chunk): `.hfc` bytes, pixels and coding indices equal chunk
    1's, one rANS launch of each kind a call (one more past the caps) and
@@ -92,7 +102,10 @@ paths against its plain PyTorch version:
    compressed whole and with tile_image=1024, halo_image=64, each file
    decoding on the host coder to the symbols it encoded, the symbols where
    the two encodes differ (measured), decompress(as_uint8) whole against
-   tile_latents=64 (largest pixel difference, measured), one rANS
+   tile_latents=64 (largest pixel difference, measured, in all and
+   more than the generator's receptive radius from the image border,
+   where the tiles' single reflect padding of the latents and the whole
+   image's padding of each layer part), one rANS
    launch per leg, each leg's time and peak device memory, and the
    generator's peak on one tile-32 window under deterministic cuDNN and
    with cuDNN free; then `cli/serve.py` in-process on 127.0.0.1 (port 0,
@@ -1323,7 +1336,7 @@ def check_rans_kernels(codec, card: str):
     from hific_tpu_torch.entropy.device_encode import (
         EncodeJob, encode_scan, encode_scan_many, encode_scan_reference)
 
-    packed = dict(zip("yz", codec._rans_tables))
+    packed = dict(zip("yz", codec._device_tables()))
     host_tables = {"y": codec.conditional.tables, "z": codec.factorized.tables}
     timed, max_err = {}, {"rans_encode": 0, "rans_decode": 0}
     plain = {}  # case label -> (kind, sym, idx, plain encode, plain decode)
@@ -1827,6 +1840,114 @@ def layout_rewrites(codec, imgs, card: str) -> dict:
     return summary
 
 
+def operating_point(codec, imgs, recons) -> dict:
+    """What the calibrated images code, printed on a line of its own: the
+    share of nonzero z and y symbols, the distinct coding indices, and the
+    spread of the decoded pixels."""
+    syms = chunk_symbols(codec, imgs)
+    y, z, idx = (np.concatenate([s[k].ravel() for s in syms])
+                 for k in range(3))
+    pixels = np.concatenate([r.ravel() for r in recons])
+    point = {"z_nonzero_share": float(np.mean(z != 0)),
+             "y_nonzero_share": float(np.mean(y != 0)),
+             "scale_indices": int(np.unique(idx).size),
+             "pixels": {"min": int(pixels.min()), "max": int(pixels.max()),
+                        "std": float(pixels.std()),
+                        "distinct": int(np.unique(pixels).size)},
+             "constant_images": sum(int(r.min() == r.max()) for r in recons)}
+    print(f"operating point ({codec.config.dtype}, {len(imgs)} x "
+          f"{imgs[0].shape[2]}x{imgs[0].shape[1]}): {json.dumps(point)}",
+          flush=True)
+    return point
+
+
+def degenerate(point: dict) -> bool:
+    """z or y symbols all zero, a single coding index, or a constant
+    reconstruction."""
+    return not (point["z_nonzero_share"] > 0 and point["y_nonzero_share"] > 0
+                and point["scale_indices"] > 1
+                and not point["constant_images"])
+
+
+PINNED_IMAGES = 2  # of the batch path's calibrated 1024x1024 images
+
+
+def pinned_tables_path(codec, imgs, card: str):
+    """Tables imported after a codec built its own reach the device coders.
+    A fresh `Codec` on the calibrated weights builds its tables and codes
+    the first PINNED_IMAGES images; then its factorized model imports its
+    own rows rolled by one channel, and its conditional model the scale
+    tables at tail mass 2**-4, and compress_many / decompress_many run
+    through the device coders. Gated: the .hfc bytes equal the host
+    coder's with the same tables and differ from the default tables',
+    each file decodes on the host to the symbols it coded, the device
+    decoder gives the host decoder's pixels, and each call launches
+    rans_encode once (once more past the caps) and rans_decode once.
+    Returns the calls' launch counts and the summary."""
+    from hific_tpu_torch.codec import Codec
+    from hific_tpu_torch.entropy.entropy_models import ConditionalEntropyModel
+
+    t0 = time.perf_counter()
+    imgs = imgs[:PINNED_IMAGES]
+    fresh = Codec(codec.config, codec.model.state_dict(), device="cuda")
+    fresh.build_tables()
+    default = [hfc_bytes(o) for o in fresh.compress_many(imgs)]
+    own = fresh.factorized.tables
+    fresh.factorized.import_tables(
+        *(np.roll(a, 1, axis=0) for a in (own.cdf, own.cdf_length,
+                                          own.cdf_offset)), own.precision)
+    scale = ConditionalEntropyModel(codec.config.likelihood_type,
+                                    tail_mass=2 ** -4).tables
+    fresh.conditional.import_tables(scale.cdf, scale.cdf_length,
+                                    scale.cdf_offset, scale.precision)
+    relaunches = fresh.device_relaunches
+    zero_kernel_counts()
+    outs = fresh.compress_many(imgs)
+    enc = kernel_counts()
+    zero_kernel_counts()
+    recons = fresh.decompress_many(outs, as_uint8=True)
+    dec = kernel_counts()
+    relaunched = fresh.device_relaunches - relaunches
+    got = [hfc_bytes(o) for o in outs]
+    if got != [hfc_bytes(fresh.compress(x, device_encode=False))
+               for x in imgs]:
+        raise AssertionError("imported tables: compress_many's .hfc bytes "
+                             "differ from the host coder's")
+    if any(a == b for a, b in zip(got, default)):
+        raise AssertionError("imported tables: the .hfc bytes are the "
+                             "default tables' (the import did not reach "
+                             "the device encoder)")
+    for i, (x, out, recon) in enumerate(zip(imgs, outs, recons)):
+        z_dec, y_dec, _ = fresh.decode_symbols(out)
+        z_enc, y_enc, *_ = fresh.encode_symbols(x)
+        if not (np.array_equal(z_dec, z_enc) and np.array_equal(y_dec, y_enc)):
+            raise AssertionError(f"imported tables, image {i}: the file "
+                                 f"does not decode to the symbols it coded")
+        if not np.array_equal(recon, fresh.decompress(
+                out, as_uint8=True, device_decode=False)):
+            raise AssertionError(f"imported tables, image {i}: the device "
+                                 f"decoder's pixels differ from the host "
+                                 f"decoder's")
+    if (enc[1:], dec[1:]) != ((1 + (relaunched > 0), 0), (0, 1)):
+        raise AssertionError(f"imported tables: launches {enc} to encode, "
+                             f"{dec} to decode; expected one rANS launch "
+                             f"a call")
+    summary = {"images": len(imgs), "relaunched": relaunched,
+               "bytes": [len(b) for b in got],
+               "default_bytes": [len(b) for b in default],
+               "seconds": time.perf_counter() - t0}
+    log(f"imported tables (factorized rows rolled by one channel, scale "
+        f"tables at tail mass 2**-4) on a fresh codec after build_tables: "
+        f"compress_many / decompress_many of {len(imgs)} calibrated "
+        f"1024x1024 images through the device coders, launches {enc} and "
+        f"{dec}; .hfc bytes the host coder's ({summary['bytes']} against "
+        f"{summary['default_bytes']} with the default tables), symbols "
+        f"lossless, pixels the host decoder's; {summary['seconds']:.2f} s "
+        f"({card})")
+    del fresh
+    return enc, dec, summary
+
+
 def batch_path(codec, card: str, small_images: bool = False):
     """compress_many / decompress_many on four seeded 1024x1024 images at
     bench.py's operating point, through the device coders, at
@@ -1858,6 +1979,9 @@ def batch_path(codec, card: str, small_images: bool = False):
     if (enc_launches, dec_launches) != (1, 1):
         raise AssertionError(f"{enc_launches} encode and {dec_launches} "
                              f"decode launches for 4 images; expected 1 and 1")
+    point = operating_point(codec, imgs, recons)
+    if degenerate(point):
+        raise AssertionError(f"a degenerate operating point: {point}")
     with tempfile.TemporaryDirectory() as tmp:
         def hfc(out, name):
             path = os.path.join(tmp, name)
@@ -1951,6 +2075,7 @@ def batch_path(codec, card: str, small_images: bool = False):
     print_top(rows, 8)
     summary = {
         "bpp": float(np.mean(bpps)),
+        "operating_point": point,
         "device_busy_share": busy_ms / wall_ms,
         "serial_ms_per_image": enc + dec,
         "serial_mp_s": mp / ((enc + dec) / 1e3),
@@ -2011,6 +2136,39 @@ def smooth_image(seed: int) -> np.ndarray:
     return (np.clip(img, 0, 1) * 255 + 0.5).astype(np.uint8)[None]
 
 
+Z_GAIN, Z_BIAS, DENSITY_SCALE = 20.0, 1.5, 0.5
+
+
+@torch.no_grad()
+def code_real_symbols_(model, seed: int):
+    """Make seeded random weights code real symbols at bench.py's operating
+    point. With `init_random_`'s alone (zero biases, the density at init
+    scale 10) a hyperlatent symbol costs ~5.4 bits even at 0, which is
+    0.42 bpp of z and all of the 0.20-0.45 band: the calibrated encoder
+    then leaves z at 0, and so mu, the y symbols, the decoded latents and
+    the generator's output are all 0. Here the density's H are those of
+    init scale DENSITY_SCALE (~1-2 bits a symbol near 0), and the hyper
+    analysis's last conv has Z_GAIN times the weights and seeded biases in
+    U(-Z_BIAS, Z_BIAS), so z follows the image and is mostly nonzero, and
+    the band leaves room for y: the calibration's first probe (alpha
+    0.045, y nearly all 0) lands below the band, not on its edge, and the
+    point it settles on codes nonzero y symbols in either dtype. The
+    model stays a draw of seeded weights: nothing of the package's
+    `init_random_` changes."""
+    from hific_tpu_torch.models.density import HyperlatentDensity
+
+    density = model.hyperprior.hyperlatent_density
+    scaled = HyperlatentDensity(density.n_channels, init_scale=DENSITY_SCALE)
+    for (h, _, _), (h_scaled, _, _) in zip(density.layers(), scaled.layers()):
+        h.copy_(h_scaled)
+    conv = model.hyperprior.analysis_net.conv3
+    conv.weight.mul_(Z_GAIN)
+    gen = torch.Generator().manual_seed(seed + 1)
+    conv.bias.copy_(Z_BIAS * (2 * torch.rand(conv.bias.shape, generator=gen)
+                              - 1))
+    return model
+
+
 def load_weights(path: str, seed: int):
     from hific_tpu_torch.config import Config
     from hific_tpu_torch.models.hific import HiFiC, init_random_
@@ -2025,8 +2183,11 @@ def load_weights(path: str, seed: int):
     # filters 320) is Config's default.
     config = Config()
     gen = torch.Generator().manual_seed(seed)
-    state = init_random_(HiFiC(config), gen).state_dict()
-    return config, state, f"seeded random weights (seed {seed}); {path} absent"
+    model = code_real_symbols_(init_random_(HiFiC(config), gen), seed)
+    return config, model.state_dict(), (
+        f"seeded random weights (seed {seed}; hyper analysis x{Z_GAIN:g} "
+        f"with biases in U(-{Z_BIAS:g}, {Z_BIAS:g}), density init scale "
+        f"{DENSITY_SCALE:g}); {path} absent")
 
 
 RANS_REPLACES = {"rans_encode": "hific_tpu/entropy/device_encode.py:222",
@@ -2066,6 +2227,9 @@ TILE_H, TILE_W = 2000, 3000  # a 6 MP camera photo; W not a multiple of 16
 # dropped to keep the script inside its time with phase 11; its generator
 # window is still measured below.
 TILE_IMAGE, TILE_LATENTS = 1024, (64,)
+# The generator's receptive radius in latents (a 3x3 head, 18 3x3 convs
+# in the residual blocks, the upsampling convs: ~340 px).
+BORDER_LATENTS = 22
 CLI_SIZES = ((IMAGE_H, IMAGE_W), (75, 93))
 
 
@@ -2370,6 +2534,14 @@ def tiling_path(codec, card: str):
     z_diff = int((enc_whole[0] != enc_tiled[0]).sum())
     pixel = {tile: int(np.abs(r_whole.astype(int) - r.astype(int)).max())
              for tile, r in r_tiled.items()}
+    # Beyond the generator's receptive field of the image border: the
+    # tiled decode reflect-pads the latents once where the whole image's
+    # generator pads each layer, so pixels nearer the border differ.
+    m = BORDER_LATENTS * 16
+    interior = {tile: int(np.abs(r_whole[:, m:-m, m:-m].astype(int)
+                                 - r[:, m:-m, m:-m].astype(int)).max())
+                if 2 * m < min(TILE_H, TILE_W) else None
+                for tile, r in r_tiled.items()}
     window = 32 + 2 * 16  # a 32-latent tile's window
     gen_peaks = generator_peaks(codec, window)
     summary = {
@@ -2382,6 +2554,7 @@ def tiling_path(codec, card: str):
             and np.array_equal(whole.hyperlatents_encoded,
                                tiled.hyperlatents_encoded)),
         "max_pixel_diff_tiled_decode": pixel,
+        f"max_pixel_diff_tiled_decode_{BORDER_LATENTS}_latents_in": interior,
         "ms": legs, "peak_gib": peaks,
         f"generator_{window}x{window}_latents": gen_peaks,
     }
@@ -2389,8 +2562,9 @@ def tiling_path(codec, card: str):
         f"(tile {TILE_IMAGE}, halo 64) vs whole: {y_diff} of {enc_whole[1].size} y and "
         f"{z_diff} of {enc_whole[0].size} z symbols differ; both files "
         f"decode to their symbols; tiled decode (halo 16) vs whole: largest "
-        f"pixel difference " + ", ".join(f"{d} at {t} latents"
-                                         for t, d in pixel.items()))
+        f"pixel difference " + ", ".join(
+            f"{d} at {t} latents ({interior[t]} more than {BORDER_LATENTS} "
+            f"latents from the image border)" for t, d in pixel.items()))
     log("tiling legs: " + "; ".join(
         f"{k} {summary['ms'][k]:.1f} ms, peak {summary['peak_gib'][k]:.2f} GiB"
         for k in summary["ms"]) + f" (host clock after synchronize; "
@@ -3477,6 +3651,11 @@ def main() -> int:
         f"the same hyperlatents: {flipped} of {n_idx} differ (measured, not "
         f"gated)")
     print("batch path:", json.dumps(batch), flush=True)
+    # Phase 6b': tables imported after build_tables, through the device
+    # coders.
+    pin_enc, pin_dec, pinned = pinned_tables_path(
+        codec, [bench_image(s) for s in range(1, PINNED_IMAGES + 1)], card)
+    print("pinned tables:", json.dumps(pinned), flush=True)
     # Phase 6c': the host coders (container v2, the scalar coder,
     # wire_chunk) on the calibrated codec.
     host_coders = host_coders_path(codec, card)
@@ -3567,9 +3746,11 @@ def main() -> int:
                      + tile_counts[0] + cli_counts[0] + gan_fwd
                      + bf16_rt[0] + bf16_codec["entry_counts"][0]
                      + bf16_launches[0] + sum(mg_fwd.values())
-                     + sum(chunk_norms.values())),
+                     + sum(chunk_norms.values()) + pin_enc[0] + pin_dec[0]),
         "launches_by_path": {**chunk_norms,
                              "codec_round_trip": launches,
+                             "pinned_tables_compress_decompress_many":
+                                 pin_enc[0] + pin_dec[0],
                              "serve": serve_counts[0],
                              "tiling": tile_counts[0],
                              "cli": cli_counts[0],
@@ -3645,6 +3826,7 @@ def main() -> int:
               ("rans_encode", {**chunk_rans["rans_encode"],
                                "codec_round_trip": rt_rans[0],
                                "compress_many": enc_launches,
+                               "pinned_tables_compress_many": pin_enc[1],
                                "serve": serve_counts[1],
                                "tiling": tile_counts[1],
                                "cli": cli_counts[1],
@@ -3656,6 +3838,7 @@ def main() -> int:
               ("rans_decode", {**chunk_rans["rans_decode"],
                                "codec_round_trip": rt_rans[1],
                                "decompress_many": dec_launches,
+                               "pinned_tables_decompress_many": pin_dec[2],
                                "serve": serve_counts[2],
                                "tiling": tile_counts[2],
                                "cli": cli_counts[2],

@@ -232,11 +232,12 @@ class Codec:
         self.factorized = FactorizedEntropyModel(
             self.model.hyperprior.hyperlatent_density)
         self.conditional = ConditionalEntropyModel(config.likelihood_type)
-        self.scale_table = torch.tensor(self.conditional.scale_table,
-                                        dtype=torch.float32,
-                                        device=self.device)
         self._tables_built = False
-        self._rans_tables = None  # (y, z) RansTables on the device
+        # What the device holds, and what it was made from: the scale
+        # table (a copy of the conditional model's) and the (y, z)
+        # RansTables (from those CdfTables objects).
+        self._scale_table = self._scale_src = None
+        self._rans_tables = self._rans_src = None
         # The spatial codec's model replicas and partitioned maps, by mesh.
         self._sp_cache = {}
         # Images whose device encode overran a buffer's default cap and
@@ -245,14 +246,44 @@ class Codec:
         self.device_relaunches = 0
 
     def build_tables(self):
-        """Build the hyperlatent probability tables (once per model) and
-        ship both coders' tables to the device."""
+        """Build the hyperlatent probability tables (searched once per
+        model; tables imported into `factorized` give way to the density's
+        own, as in the JAX package) and ship both coders' tables to the
+        device."""
         self.factorized.build_tables()
-        self._rans_tables = tuple(
-            rans_tables(t.cdf, t.cdf_length, t.cdf_offset, t.precision,
-                        inverse=t.inverse).to(self.device)
-            for t in (self.conditional.tables, self.factorized.tables))
+        self._device_tables()
         self._tables_built = True
+
+    @property
+    def scale_table(self) -> torch.Tensor:
+        """The conditional model's scale table, float32 on the device: the
+        index boundaries of `synth_stats`. Follows a table the caller
+        gives the model (`ConditionalEntropyModel(scale_table=)`)."""
+        table = self.conditional.scale_table
+        if self._scale_src is None or not np.array_equal(table,
+                                                         self._scale_src):
+            if np.any(np.diff(table) < 0):
+                raise ValueError("synth_stats bucketizes sigma: the scale "
+                                 "table must be ascending")
+            self._scale_table = torch.tensor(table, dtype=torch.float32,
+                                             device=self.device)
+            self._scale_src = np.array(table)
+        return self._scale_table
+
+    def _device_tables(self) -> tuple:
+        """The (y, z) RansTables of the device coders, made from the tables
+        the entropy models hold now: shipped again when either model holds
+        another tables object than they were made from (an import, or
+        `build_tables` after one)."""
+        held = (self.conditional.tables, self.factorized.tables)
+        if self._rans_src is None or any(
+                a is not b for a, b in zip(held, self._rans_src)):
+            self._rans_tables = tuple(
+                rans_tables(t.cdf, t.cdf_length, t.cdf_offset, t.precision,
+                            inverse=t.inverse).to(self.device)
+                for t in held)
+            self._rans_src = held
+        return self._rans_tables
 
     def _model_input(self, x, shape_bucket: Optional[int] = None
                      ) -> torch.Tensor:
@@ -402,7 +433,7 @@ class Codec:
         default caps."""
         (_, cy, hy, wy), (_, cz, hz, wz) = item.y_sym.shape, item.z_sym.shape
         z_idx = torch.arange(cz, dtype=torch.int32, device=item.z_sym.device)
-        y_tables, z_tables = self._rans_tables
+        y_tables, z_tables = self._device_tables()
         return (EncodeJob(_lanes(item.y_sym), _lanes(item.idx), y_tables,
                           *default_caps(hy * wy, cy)),
                 EncodeJob(_lanes(item.z_sym),
@@ -598,9 +629,10 @@ class Codec:
         quantized latents y + mu of each, the kernel's counts of bad
         indices), all on the device; blocks on nothing."""
         stats = [self._hyper_stats(o) for o in outs]
+        y_tables = self._device_tables()[0]
         decoded = decode_scan_many([
             DecodeJob(words_tensor(o.latents_encoded, self.device),
-                      _lanes(idx), self._rans_tables[0])
+                      _lanes(idx), y_tables)
             for o, (_, _, idx) in zip(outs, stats)])
         y_hats = []
         for (_, mu, idx), (y_sym, _) in zip(stats, decoded):

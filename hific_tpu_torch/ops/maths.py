@@ -65,6 +65,14 @@ def standardized_quantile_logistic(quantile):
     return scipy.stats.logistic.ppf(quantile)
 
 
+def quantile_gaussian(quantile, mean, scale):
+    return scipy.stats.norm.ppf(quantile, loc=mean, scale=scale)
+
+
+def quantile_logistic(quantile, mean, scale):
+    return scipy.stats.logistic.ppf(quantile, loc=mean, scale=scale)
+
+
 def pmf_to_quantized_cdf(pmf, precision: int) -> np.ndarray:
     """Quantize a PMF to an integer CDF summing exactly to 2**precision.
 

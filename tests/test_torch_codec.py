@@ -277,3 +277,29 @@ def test_reconstruct_matches_jax(tiny):
     want = np.asarray(jax_codec.reconstruct(x))
     assert got.shape == want.shape == x.shape and got.dtype == np.float32
     np.testing.assert_allclose(got, want, atol=RECON_ATOL, rtol=0)
+
+
+def test_flagship_imported_jax_tables_give_jax_bytes(flagship):
+    """The JAX package's tables of the trained density and its scale
+    tables, imported into the port's flagship `Codec`, are the ones it
+    codes with: on the 48x64 crop its host coder and device encoder (the
+    plain version here) write the JAX `Codec`'s bytes."""
+    jax_codec, port = flagship
+    for codec in (jax_codec, port):
+        if not codec._tables_built:
+            codec.build_tables()
+    saved = (port.factorized.tables, port.conditional.tables)
+    x = _u8(48, 64, seed=4)
+    try:
+        for ours, theirs in ((port.factorized, jax_codec.factorized),
+                             (port.conditional, jax_codec.conditional)):
+            t = theirs.tables
+            ours.import_tables(t.cdf, t.cdf_length, t.cdf_offset,
+                               t.precision)
+        assert port.factorized.tables is not saved[0]
+        assert port.conditional.tables is not saved[1]
+        want = _hfc(jax_codec.compress(x), jax_container)
+        assert _hfc(port.compress(x)) == want
+        assert _hfc(port.compress(x, device_encode=True)) == want
+    finally:
+        port.factorized.tables, port.conditional.tables = saved
